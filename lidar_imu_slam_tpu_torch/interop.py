@@ -1,0 +1,53 @@
+"""State carried across between the JAX package and the port.
+
+The odometry state is the system's "weights": a JAX `KissState` (with its
+`VoxelMap` and `ThresholdState`), once its leaves are converted to numpy
+arrays, becomes the port's `KissState` on a device, and back. This module
+takes and returns numpy only; it reads fields by name, so any object with
+the JAX field names works (a NamedTuple of numpy arrays, for example).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.kiss_icp import KissState
+from .ops.icp import ThresholdState
+from .ops.voxel_map import VoxelMap
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def kiss_state_from_numpy(tree, device: torch.device | str = "cpu") -> KissState:
+    """Port state from the numpy leaves of a JAX KissState."""
+    m, thr = tree.map, tree.threshold
+    return KissState(
+        map=VoxelMap(*(_t(getattr(m, f), device) for f in VoxelMap._fields)),
+        pose=_t(tree.pose, device),
+        pose_prev=_t(tree.pose_prev, device),
+        first_pose=_t(tree.first_pose, device),
+        num_poses=_t(tree.num_poses, device),
+        threshold=ThresholdState(*(_t(getattr(thr, f), device)
+                                   for f in ThresholdState._fields)),
+    )
+
+
+def kiss_state_to_numpy(state: KissState) -> KissState:
+    """The port's state with numpy leaves, in the JAX field order (so
+    `jax_kiss_icp.KissState(VoxelMap(*s.map), ..., ThresholdState(*s.threshold))`
+    rebuilds the JAX state)."""
+    return KissState(
+        map=VoxelMap(*(_n(t) for t in state.map)),
+        pose=_n(state.pose),
+        pose_prev=_n(state.pose_prev),
+        first_pose=_n(state.first_pose),
+        num_poses=_n(state.num_poses),
+        threshold=ThresholdState(*(_n(t) for t in state.threshold)),
+    )

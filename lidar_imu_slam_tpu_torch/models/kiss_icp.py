@@ -1,0 +1,242 @@
+"""KISS-ICP-style LiDAR odometry, lidar-only fast path (counterpart of
+the JAX package's `models/kiss_icp.py`; reference src/odom_run.cpp:154-185
+-> src/sensors/lidar/icp.cpp:49-86).
+
+    state', out = register_frame(state, scan, cfg)
+
+Per scan: kernel K2 (`pose_pre`: CV guess, adaptive sigma, deskew twist)
+-> CV deskew -> world transform at the guess -> fused grouped downsample
+-> source downsample + IQR mask -> fused ICP (kernel K1 per round) ->
+kernel K3 (`pose_post`: compose, divergence gate, orthonormalize, map
+delta) -> map insert / evict. Poses and threshold accumulators are f64;
+points f32.
+
+Host syncs per scan: one per ICP round (the loop reads the round's
+iteration count and flags), plus one for the conditional compaction when
+`cfg.map.auto_rebuild` is on.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import PipelineConfig
+from ..ops import deskew as deskew_ops
+from ..ops import icp as icp_ops
+from ..ops import lie, stats, voxel_map
+from ..ops.kernels import pose_chain
+from ..ops.preprocess import Scan
+
+F64 = torch.float64
+
+
+class KissState(NamedTuple):
+    map: voxel_map.VoxelMap
+    pose: torch.Tensor  # (4, 4) f64 — T_{n-1} (latest)
+    pose_prev: torch.Tensor  # (4, 4) f64 — T_{n-2}
+    first_pose: torch.Tensor  # (4, 4) f64 — poses.front() for has_moved
+    num_poses: torch.Tensor  # () i32
+    threshold: icp_ops.ThresholdState
+
+
+class FrameOutput(NamedTuple):
+    pose: torch.Tensor  # (4, 4) f64 world pose of this scan
+    keypoints: torch.Tensor  # (S, 3) f32 ICP source (world frame @ guess)
+    keypoints_mask: torch.Tensor  # (S,)
+    deskewed: torch.Tensor  # (M, 3) f32 corrected map-insert downsample
+    deskewed_mask: torch.Tensor  # (M,)
+    icp_iterations: torch.Tensor  # () i32
+    num_correspondences: torch.Tensor  # () i32
+    residual_rms: torch.Tensor  # () f64
+    sigma: torch.Tensor  # () f64 adaptive threshold used
+    map_voxels: torch.Tensor  # () i32
+    icp_converged: torch.Tensor  # () bool
+    window_drops: torch.Tensor  # () i32
+
+
+class FastCoreOutput(NamedTuple):
+    new_map: voxel_map.VoxelMap
+    prow: torch.Tensor  # (48,) f64 pose_post row
+    source: torch.Tensor
+    source_mask: torch.Tensor
+    map_points: torch.Tensor
+    map_points_mask: torch.Tensor
+    sigma: torch.Tensor  # () f64
+    iterations: int
+    num_correspondences: torch.Tensor
+    residual_rms: torch.Tensor  # () f64
+    converged: torch.Tensor
+    window_drops: torch.Tensor
+
+
+def init_state(cfg: PipelineConfig, device: torch.device | str = "cpu") -> KissState:
+    def eye():
+        return torch.eye(4, dtype=F64, device=device)
+
+    return KissState(
+        map=voxel_map.create(cfg.map, device),
+        pose=eye(),
+        pose_prev=eye(),
+        first_pose=eye(),
+        num_poses=torch.zeros((), dtype=torch.int32, device=device),
+        threshold=icp_ops.threshold_init(device),
+    )
+
+
+def pose_pre_row(state: KissState, cfg: PipelineConfig) -> torch.Tensor:
+    """Kernel K2 on the pose state: the (32,) f64 row of CV guess, sigma,
+    moved flag, threshold accumulators and deskew twist pieces
+    (ops/kernels/pose_chain.py)."""
+    thr = state.threshold
+    return pose_chain.pose_pre(
+        state.pose, state.pose_prev, state.first_pose, thr.model_error_sq,
+        thr.model_deviation, state.num_poses, thr.num_samples,
+        min_motion_th=cfg.icp.min_motion_th,
+        initial_threshold=cfg.icp.initial_threshold,
+        max_range=cfg.map.max_range,
+        deskew_on=cfg.icp.deskew,
+    )
+
+
+def _fast_trunk(m: voxel_map.VoxelMap, deskewed_xyz, mask, tau, guess: torch.Tensor,
+                sigma: torch.Tensor, cfg: PipelineConfig,
+                inplace: bool = False) -> FastCoreOutput:
+    """The registration trunk shared by the lidar-only and (later) LIO
+    paths: world transform at the guess, fused grouped downsample, IQR
+    source mask, fused ICP, kernel K3, map insert / evict (+ conditional
+    compaction). `guess` is a 1-D f64 whose first 12 entries are the guess
+    [R 9 | t 3] (the pose_pre row); `sigma` the () f64 adaptive threshold.
+    With `inplace` the map tables are updated in place."""
+    tg = guess[9:12].to(torch.float32)
+    world = lie.rotate_points(guess[:9].reshape(3, 3), deskewed_xyz) + tg
+    g = voxel_map.fused_downsample(
+        world, mask, cfg.map.voxel_size, cfg.icp.max_map_points,
+        tau=None if cfg.lidar.sort_by_time else tau,
+    )
+    source, source_mask, _, src_drops = voxel_map.first_point_per_voxel(
+        g.points, g.mask, 1.5 * cfg.map.voxel_size, cfg.icp.max_source_points
+    )
+    d_sq = torch.sum((source - tg[None, :]) ** 2, dim=-1)
+    source_mask = stats.iqr_inlier_mask(d_sq.to(F64), source_mask)
+
+    # ICP on the world-frame source from identity: the result is the
+    # correction; pose_post composes corr @ guess
+    dev = source.device
+    res = icp_ops.icp_registration_fused_pair(
+        m, source, source_mask,
+        torch.eye(3, dtype=F64, device=dev).reshape(9),
+        torch.zeros(3, dtype=F64, device=dev),
+        max_corresp_dist=3.0 * sigma, kernel_th=sigma / 3.0,
+        map_cfg=cfg.map, max_iterations=cfg.icp.max_iterations,
+        estimation_threshold=cfg.icp.estimation_threshold,
+        min_correspondences=cfg.icp.min_correspondences,
+        max_step_norm=cfg.icp.max_step_norm, n_inner=cfg.icp.fused_inner,
+    )
+    prow = pose_chain.pose_post(res.pose, guess,
+                                max_model_deviation=cfg.icp.max_model_deviation)
+
+    # map update with the correction delta only (reference icp.cpp:81);
+    # keys from the PRE-correction grouping (unique per group)
+    g_corr = g._replace(points=lie.rotate_points(prow[13:22].reshape(3, 3), g.points)
+                        + prow[22:25].to(torch.float32))
+    pre_keys = voxel_map.pack_key(voxel_map.voxel_of(g.points, cfg.map.voxel_size))
+    new_map = voxel_map.insert_grouped(m, g_corr, cfg.map, keys=pre_keys, inplace=inplace)
+    # the insert produced (or, in place, owns) every table the eviction
+    # rewrites, so the eviction always works in place
+    if cfg.map.auto_evict:
+        new_map = voxel_map.evict_far(new_map, prow[9:12], cfg.map, inplace=True)
+    if cfg.map.auto_rebuild:
+        cap = cfg.map.capacity
+        need = (new_map.next_slot > cap - cap // 8) & (new_map.tombstones > cap // 16)
+        if bool(need):  # host sync: compaction is rare and rewrites the map
+            new_map = voxel_map.rebuild(new_map, cfg.map)
+    return FastCoreOutput(
+        new_map=new_map,
+        prow=prow,
+        source=source,
+        source_mask=source_mask,
+        map_points=g_corr.points,
+        map_points_mask=g.mask,
+        sigma=sigma,
+        iterations=res.iterations,
+        num_correspondences=res.num_correspondences,
+        residual_rms=res.residual_rms,
+        converged=res.converged,
+        window_drops=g.window_drops + src_drops,
+    )
+
+
+def _register_frame_fast(state: KissState, scan: Scan, cfg: PipelineConfig,
+                         inplace: bool = False):
+    """The fast path: pose bookkeeping in kernels K2/K3 around the fused
+    ICP trunk (JAX kiss_icp.py:382), all pose math f64."""
+    row = pose_pre_row(state, cfg)
+    # vector deskew driven by the kernel's twist scalars (identity when the
+    # kernel gated them to zero)
+    deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, row[16:29])
+    core = _fast_trunk(state.map, deskewed_xyz, scan.mask, scan.tau, row, row[12],
+                       cfg, inplace=inplace)
+    prow = core.prow
+    new_pose = lie.make_transform(prow[0:9].reshape(3, 3), prow[9:12])
+    thr_state = icp_ops.ThresholdState(
+        row[14].clone(), row[15].to(torch.int32), prow[25:41].reshape(4, 4).clone()
+    )
+    first = state.num_poses == 0
+    new_state = KissState(
+        map=core.new_map,
+        pose=new_pose,
+        pose_prev=torch.where(first, new_pose, state.pose),
+        first_pose=torch.where(first, new_pose, state.first_pose),
+        num_poses=state.num_poses + 1,
+        threshold=thr_state,
+    )
+    out = FrameOutput(
+        pose=new_pose,
+        keypoints=core.source,
+        keypoints_mask=core.source_mask,
+        deskewed=core.map_points,
+        deskewed_mask=core.map_points_mask,
+        icp_iterations=torch.tensor(core.iterations, dtype=torch.int32,
+                                    device=new_pose.device),
+        num_correspondences=core.num_correspondences,
+        residual_rms=core.residual_rms,
+        sigma=core.sigma,
+        map_voxels=voxel_map.num_voxels(core.new_map),
+        icp_converged=core.converged,
+        window_drops=core.window_drops,
+    )
+    return new_state, out
+
+
+def _check_fast_path(cfg: PipelineConfig) -> None:
+    if cfg.icp.gn_backend != "pallas":
+        raise NotImplementedError(
+            "gn_backend='xla' is the classic f64 path, which comes with a "
+            "later slice of the port; use gn_backend='pallas'"
+        )
+    if cfg.icp.batch_unroll_outer != 0:
+        raise NotImplementedError(
+            "batch_unroll_outer > 0 is the batched (multi-stream / Monte-Carlo) "
+            "path, which comes with a later slice of the port"
+        )
+
+
+def register_frame(state: KissState, scan: Scan, cfg: PipelineConfig):
+    """One odometry step (reference icp.cpp:49-86). Returns (state', out);
+    the passed state is left unchanged.
+
+    Runs the fast path (gn_backend="pallas", batch_unroll_outer == 0);
+    other configurations raise NotImplementedError naming their slice."""
+    _check_fast_path(cfg)
+    return _register_frame_fast(state, scan, cfg)
+
+
+def register_frame_step(state: KissState, scan: Scan, cfg: PipelineConfig):
+    """`register_frame` that updates the map tables of `state` in place —
+    the analogue of the JAX package's donated `register_frame_step`: no
+    copy of the ~40 MB map per scan. The caller must not reuse `state`
+    after the call (the returned state shares its storage)."""
+    _check_fast_path(cfg)
+    return _register_frame_fast(state, scan, cfg, inplace=True)

@@ -1,0 +1,203 @@
+"""SO(3)/SE(3) math in PyTorch (counterpart of the JAX package's `ops/lie.py`).
+
+Conventions as in the JAX package:
+* SE(3) tangent vectors are [v(3), w(3)] — translation first (Sophus,
+  reference src/utils/calculation_helpers.cpp:116-119).
+* Poses are (..., 4, 4) homogeneous matrices, f64 on the ported path.
+
+Only what the lidar-only fast path (and its tests) call is ported. The
+JAX package's while-loop-free f64 helpers (`se3_exp_poly`,
+`matmul_nowhile`, `chol_solve_unrolled`) exist to lower f64 on a TPU and
+have no counterpart: the GPU computes f64 natively, so `compose` is a
+plain matmul here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix from a (..., 3) vector."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([zero, -wz, wy], dim=-1),
+            torch.stack([wz, zero, -wx], dim=-1),
+            torch.stack([-wy, wx, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise cross product of (..., 3) tensors (broadcasting)."""
+    return torch.stack(
+        [
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ],
+        dim=-1,
+    )
+
+
+def _safe_theta(w: torch.Tensor):
+    sq = torch.sum(w * w, dim=-1)
+    small = sq < _EPS
+    safe = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    return sq, small, safe
+
+
+def _eye3_like(W: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (..., 3) rotation vector -> (..., 3, 3) rotation matrix."""
+    sq, small, safe = _safe_theta(w)
+    W = hat(w)
+    W2 = W @ W
+    one = torch.ones_like(sq)
+    a = torch.where(small, 1.0 - sq / 6.0, torch.sin(safe) / safe)
+    b = torch.where(
+        small, 0.5 - sq / 24.0, (1.0 - torch.cos(safe)) / torch.where(small, one, sq)
+    )
+    return _eye3_like(W) + a[..., None, None] * W + b[..., None, None] * W2
+
+
+def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """V(w) such that se3_exp([v, w]) has translation V(w) @ v."""
+    sq, small, theta = _safe_theta(w)
+    W = hat(w)
+    W2 = W @ W
+    safe_sq = torch.where(small, torch.ones_like(sq), sq)
+    b = torch.where(small, 0.5 - sq / 24.0, (1.0 - torch.cos(theta)) / safe_sq)
+    c = torch.where(
+        small, 1.0 / 6.0 - sq / 120.0, (theta - torch.sin(theta)) / (safe_sq * theta)
+    )
+    return _eye3_like(W) + b[..., None, None] * W + c[..., None, None] * W2
+
+
+def _so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    sq, small, theta = _safe_theta(w)
+    W = hat(w)
+    W2 = W @ W
+    one = torch.ones_like(sq)
+    half = torch.where(small, one, theta / 2.0)
+    cot = torch.where(small, one, half / torch.tan(half))
+    coeff = torch.where(
+        small, 1.0 / 12.0 + sq / 720.0, (1.0 - cot) / torch.where(small, one, sq)
+    )
+    return _eye3_like(W) - 0.5 * W + coeff[..., None, None] * W2
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """(..., 6) twist [v, w] -> (..., 4, 4) transform (Sophus convention)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    R = so3_exp(w)
+    t = (_so3_left_jacobian(w) @ v[..., None])[..., 0]
+    return make_transform(R, t)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (w, x, y, z) unit quaternion (Shepperd pivot)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tw = 1.0 + m00 + m11 + m22
+    tx = 1.0 + m00 - m11 - m22
+    ty = 1.0 - m00 + m11 - m22
+    tz = 1.0 - m00 - m11 + m22
+    qw = torch.stack([tw, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, tx, m10 + m01, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m10 + m01, ty, m21 + m12], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m21 + m12, tz], dim=-1)
+
+    def finish(qc, t):
+        s = torch.sqrt(torch.clamp(t, min=_EPS))
+        denom = torch.where(s < _EPS, torch.ones_like(s), 2.0 * s)
+        return qc / denom[..., None]
+
+    cands = torch.stack(
+        [finish(qw, tw), finish(qx, tx), finish(qy, ty), finish(qz, tz)], dim=-2
+    )
+    best = torch.argmax(torch.stack([tw, tx, ty, tz], dim=-1), dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    n = torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q / torch.where(n < _EPS, torch.ones_like(n), n)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation vector (..., 3)."""
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    vec = q[..., 1:]
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    n_sq = torch.sum(vec * vec, dim=-1)
+    small = n_sq < _EPS
+    n = torch.sqrt(torch.where(small, torch.ones_like(n_sq), n_sq))
+    angle = 2.0 * torch.atan2(n, w)
+    scale = torch.where(
+        small, 2.0 / torch.where(w < _EPS, torch.ones_like(w), w), angle / n
+    )
+    return vec * scale[..., None]
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 3) rotation vector (pi-robust)."""
+    return quat_log(rot_to_quat(R))
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) transform -> (..., 6) twist [v, w]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    w = so3_log(R)
+    v = (_so3_left_jacobian_inv(w) @ t[..., None])[..., 0]
+    return torch.cat([v, w], dim=-1)
+
+
+def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble (..., 4, 4) from (..., 3, 3) rotation and (..., 3) translation."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) @ (..., 4, 4) pose composition (native f64 matmul)."""
+    return A @ B
+
+
+def transform_inverse(T: torch.Tensor) -> torch.Tensor:
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    return make_transform(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def rotate_points(R: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """(3, 3) rotation applied to (..., 3) points, ELEMENTWISE in the
+    points' dtype (9 multiply-adds per point; never a reduced-precision
+    matmul on point geometry)."""
+    R = R.to(pts.dtype)
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    return torch.stack(
+        [
+            R[..., 0, 0] * x + R[..., 0, 1] * y + R[..., 0, 2] * z,
+            R[..., 1, 0] * x + R[..., 1, 1] * y + R[..., 1, 2] * z,
+            R[..., 2, 0] * x + R[..., 2, 1] * y + R[..., 2, 2] * z,
+        ],
+        dim=-1,
+    )
+
+
+def delta_pose(T_first: torch.Tensor, T_last: torch.Tensor) -> torch.Tensor:
+    """log(T_first^-1 @ T_last) (reference calculation_helpers.cpp:99-102)."""
+    return se3_log(transform_inverse(T_first) @ T_last)

@@ -1,0 +1,175 @@
+"""Static-shape LiDAR scan preprocessing (counterpart of
+the JAX package's `ops/preprocess.py`; reference frame.cpp:101-193).
+
+A padded raw scan goes through one device pipeline: range gate + NaN drop,
+per-point relative time (constant-rotation fallback per ring when the scan
+carries no timestamps), optional time sort. The documented deviations of
+the JAX package are kept (tau spans [0, 1]; the first point is kept).
+
+`time_source="auto"` chooses per scan between the timestamps and the
+rotation model with `torch.where` on the device — both are computed, but
+the host never waits for the device to decide.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import LidarConfig
+
+_I64_MAX = 0x7FFFFFFFFFFFFFFF
+
+
+class RawScan(NamedTuple):
+    """Padded raw scan message.
+
+    xyz:   (N, 3) f32 sensor frame
+    time:  (N,)   f64 per-point absolute timestamp (s); <= 0 everywhere
+           means "no per-point time" (reference frame.cpp:128)
+    ring:  (N,)   i32 scan line index
+    mask:  (N,)   bool, true for real (non-padding) points
+    stamp: ()     f64 message header time (s)
+    """
+
+    xyz: torch.Tensor
+    time: torch.Tensor
+    ring: torch.Tensor
+    mask: torch.Tensor
+    stamp: torch.Tensor
+
+
+class Scan(NamedTuple):
+    """Preprocessed scan: range-gated, padded (time-sorted when configured).
+
+    xyz (N, 3) f32, tau (N,) f32 in [0, 1], rel_t (N,) f64 seconds since
+    scan start, mask (N,) bool, t_begin / t_end () f64 seconds.
+    """
+
+    xyz: torch.Tensor
+    tau: torch.Tensor
+    rel_t: torch.Tensor
+    mask: torch.Tensor
+    t_begin: torch.Tensor
+    t_end: torch.Tensor
+
+
+def rotation_model_rel_time(xyz, ring, mask, cfg: LidarConfig) -> torch.Tensor:
+    """Per-point relative time (s) from the constant-rotation model
+    (reference frame.cpp:159-182): the first valid point of each ring
+    anchors the azimuth; time = ((yaw_fp - yaw) mod angle_limit) / rate."""
+    n = xyz.shape[0]
+    lines = cfg.num_scan_lines
+    yaw = torch.rad2deg(torch.atan2(xyz[:, 1], xyz[:, 0]))
+    idx = torch.arange(n, dtype=torch.int32, device=xyz.device)
+    ring_c = torch.clamp(ring, 0, lines - 1).long()
+    first_idx = torch.full((lines,), n, dtype=torch.int32, device=xyz.device)
+    first_idx.scatter_reduce_(
+        0,
+        torch.where(mask, ring_c, torch.full_like(ring_c, lines - 1)),
+        torch.where(mask, idx, torch.full_like(idx, n)),
+        reduce="amin",
+    )
+    yaw_pad = torch.cat([yaw, torch.zeros((1,), dtype=yaw.dtype, device=yaw.device)])
+    yaw_fp = yaw_pad[torch.clamp(first_idx, max=n).long()][ring_c]
+    scan_ang_vel = cfg.frame_rate * 360.0 / 1000.0  # deg per ms
+    diff = torch.remainder(yaw_fp - yaw, cfg.angle_limit)
+    return (diff / scan_ang_vel / 1000.0).to(torch.float64)
+
+
+def preprocess_scan(raw: RawScan, cfg: LidarConfig) -> Scan:
+    """Range gate, relative time, optional sort. Returns a full-scan `Scan`."""
+    xyz = raw.xyz
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    d2 = x * x + y * y + z * z
+    finite = torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z)
+    gate = (d2 >= cfg.min_range**2) & (d2 <= cfg.max_range**2)
+    mask = raw.mask & finite & gate
+
+    if cfg.time_source == "per_point":
+        rel = raw.time - raw.stamp
+    elif cfg.time_source == "rotation_model":
+        rel = rotation_model_rel_time(xyz, raw.ring, mask, cfg)
+    else:
+        has_time = torch.any(raw.mask & (raw.time > 0))
+        rel = torch.where(
+            has_time, raw.time - raw.stamp,
+            rotation_model_rel_time(xyz, raw.ring, mask, cfg),
+        )
+
+    # anchor at the first valid point's relative time so rel_t >= 0
+    inf = torch.full_like(rel, float("inf"))
+    t0 = torch.min(torch.where(mask, rel, inf))
+    t0 = torch.where(torch.isfinite(t0), t0, torch.zeros_like(t0))
+    rel = rel - t0
+    zero = torch.zeros_like(rel)
+
+    if not cfg.sort_by_time:
+        rel_s = torch.where(mask, rel, zero)
+        t_span = torch.max(rel_s)
+        denom = torch.where(t_span > 0, t_span, torch.ones_like(t_span))
+        t_begin = raw.stamp + t0
+        return Scan(
+            xyz=torch.where(mask[:, None], xyz, torch.zeros_like(xyz)).to(torch.float32),
+            tau=(rel_s / denom).to(torch.float32),
+            rel_t=rel_s,
+            mask=mask,
+            t_begin=t_begin,
+            t_end=t_begin + t_span,
+        )
+
+    # time sort as ONE int64 sort: the f32 bit pattern of a non-negative
+    # float is order-preserving, the index in the low bits breaks ties by
+    # sensor order (same key as the JAX package, so the same order)
+    n = xyz.shape[0]
+    idx_bits = max(n - 1, 1).bit_length()
+    t_bits = torch.clamp(rel, min=0.0).to(torch.float32).view(torch.int32).to(torch.int64)
+    packed = (t_bits << idx_bits) | torch.arange(n, dtype=torch.int64, device=xyz.device)
+    packed = torch.where(mask, packed, torch.full_like(packed, _I64_MAX))
+    s = torch.sort(packed).values
+    order = s & ((1 << idx_bits) - 1)
+    mask_s = s < _I64_MAX
+    xyz_s = torch.where(mask_s[:, None], xyz[order], torch.zeros_like(xyz)).to(torch.float32)
+    rel_s = (s >> idx_bits).to(torch.int32).view(torch.float32).to(torch.float64)
+    rel_s = torch.where(mask_s, rel_s, zero)
+    t_span = torch.max(rel_s)
+    denom = torch.where(t_span > 0, t_span, torch.ones_like(t_span))
+    t_begin = raw.stamp + t0
+    return Scan(
+        xyz=xyz_s,
+        tau=(rel_s / denom).to(torch.float32),
+        rel_t=rel_s,
+        mask=mask_s,
+        t_begin=t_begin,
+        t_end=t_begin + t_span,
+    )
+
+
+def pack_raw_scan(xyz, time=None, ring=None, stamp=0.0,
+                  max_points: int | None = None,
+                  device: torch.device | str = "cpu") -> RawScan:
+    """Pad numpy-like arrays into a RawScan of tensors on `device`."""
+    xyz = np.asarray(xyz, dtype=np.float32)
+    n = xyz.shape[0]
+    cap = max_points if max_points is not None else n
+    if n > cap:
+        raise ValueError(f"scan has {n} points > capacity {cap}")
+
+    def pad(a, fill, dtype):
+        out = np.full((cap,) + a.shape[1:], fill, dtype=dtype)
+        out[:n] = a
+        return torch.from_numpy(out).to(device)
+
+    t = np.zeros((n,), np.float64) if time is None else np.asarray(time, np.float64)
+    r = np.zeros((n,), np.int32) if ring is None else np.asarray(ring, np.int32)
+    mask = np.zeros((cap,), bool)
+    mask[:n] = True
+    return RawScan(
+        xyz=pad(xyz, 0.0, np.float32),
+        time=pad(t, 0.0, np.float64),
+        ring=pad(r, 0, np.int32),
+        mask=torch.from_numpy(mask).to(device),
+        stamp=torch.tensor(float(stamp), dtype=torch.float64, device=device),
+    )

@@ -1,0 +1,684 @@
+"""Fixed-capacity voxel local map in device memory (counterpart of
+the JAX package's `ops/voxel_map.py`, main-path subset).
+
+Same tables, same bit layouts, same integer results as the JAX package
+(the parity tests hold them bit-equal):
+
+  keys   (C,)      int32  wrapped packed voxel coordinate, or EMPTY/DELETED
+  points (C, K*3)  f32    per-voxel point rows, +inf pad ((0, 0) when
+                          store_points=False)
+  npts   (C,)      int32  live point count per voxel
+  grid   (G,)      int32  dense toroidal index: wrapped voxel coord ->
+                          (fingerprint << slot_bits | slot), -1 = absent
+  packed (C, Kp)   int32  voxel-local packed point mirror (10 bits/axis in a
+                          3-voxel window around the key voxel), -1 = invalid
+
+Two rules that the JAX code relies on implicitly are explicit here:
+
+* JAX drops a scatter whose index is out of range (`mode="drop"`); torch
+  raises on the CPU and device-asserts on CUDA. Every dropping scatter
+  writes its dropped entries into ONE spare element past the end of a flat
+  buffer, which is sliced off (`_scatter`). No host sync, no boolean
+  compaction.
+* JAX gathers clamp out-of-range indices; every such gather clamps
+  explicitly.
+
+Kept scatter indices are unique per call (one write per voxel slot / grid
+cell / packed lane), so `index_put_` without accumulation is deterministic.
+
+Functional by default like the JAX package; with `inplace=True` the tables
+of the map passed in are updated in place (the analogue of JAX buffer
+donation) and must not be reused by the caller.
+
+Divisions by the voxel size are true f32 divisions by a device tensor: a
+CUDA division by a host scalar multiplies by the reciprocal, which moves
+points that lie on a voxel edge into the neighbouring voxel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import MapConfig
+
+EMPTY = -1
+DELETED = -2
+_KEY_BITS = 10
+_KEY_MASK = (1 << _KEY_BITS) - 1
+_PKL_BITS = 10
+_PKL_MAX = (1 << _PKL_BITS) - 1  # 1023
+_PKL_SPAN = 3.0
+_PK_SENT32 = -1
+_SENTINEL = (1 << 63) - 1
+_IDX_BITS = 18
+_LOCAL_BITS = 15
+_DS_BITS = 9
+_RANK_CAP = 255
+_TAU_BITS = 12
+
+I32 = torch.int32
+I64 = torch.int64
+
+
+def _f32(x: float) -> float:
+    """A Python float holding exactly the f32 rounding of x."""
+    return float(np.float32(x))
+
+
+def _tdiv(x: torch.Tensor, v: float) -> torch.Tensor:
+    """x / v as a true division in x's dtype (see module docstring)."""
+    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+class VoxelMap(NamedTuple):
+    keys: torch.Tensor
+    points: torch.Tensor
+    npts: torch.Tensor
+    tombstones: torch.Tensor  # () int32
+    drops: torch.Tensor  # () int32
+    grid: torch.Tensor
+    next_slot: torch.Tensor  # () int32
+    packed: torch.Tensor
+
+
+class GroupedCloud(NamedTuple):
+    """A compacted, map-voxel-grouped downsample (`fused_downsample`)."""
+
+    points: torch.Tensor  # (M, 3) f32
+    mask: torch.Tensor  # (M,) bool
+    head: torch.Tensor  # (M,) bool
+    head_pos: torch.Tensor  # (M,) i32
+    rank: torch.Tensor  # (M,) i32
+    n_unique: torch.Tensor  # () i32
+    window_drops: torch.Tensor  # () i32
+
+
+# ---------------------------------------------------------------------------
+# creation / keys
+# ---------------------------------------------------------------------------
+
+
+def _grid_log2(cfg: MapConfig):
+    gx, gy, gz = cfg.grid_dims
+    return gx.bit_length() - 1, gy.bit_length() - 1, gz.bit_length() - 1
+
+
+def _slot_bits(cfg: MapConfig) -> int:
+    return max((cfg.capacity - 1).bit_length(), 1)
+
+
+def create(cfg: MapConfig, device: torch.device | str = "cpu") -> VoxelMap:
+    c, k = cfg.capacity, cfg.max_points_per_voxel
+    if cfg.voxel_size * (_KEY_MASK // 2 - 2) < 2.0 * cfg.max_range:
+        raise ValueError(
+            f"voxel_size {cfg.voxel_size} too small for max_range "
+            f"{cfg.max_range}: wrapped {_KEY_BITS}-bit keys alias"
+        )
+    gx, gy, gz = cfg.grid_dims
+    if cfg.voxel_size * (min(gx, gy) - 4) < 2.0 * cfg.max_range:
+        raise ValueError(
+            f"grid_xy {min(gx, gy)} too small for max_range {cfg.max_range} "
+            f"at voxel_size {cfg.voxel_size}"
+        )
+    if cfg.nn_points % 2 != 0:
+        raise ValueError("nn_points must be even")
+    fp_bits = 3 * _KEY_BITS - sum(_grid_log2(cfg))
+    if fp_bits + _slot_bits(cfg) > 31:
+        raise ValueError("grid cell overflow: grow the grid or shrink capacity")
+    if not cfg.store_points and not cfg.packed_nn:
+        raise ValueError("store_points=False requires packed_nn=True")
+
+    def full(shape, fill, dtype):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    scalar = torch.zeros((), dtype=I32, device=device)
+    return VoxelMap(
+        keys=full((c,), EMPTY, I32),
+        points=(full((c, k * 3), float("inf"), torch.float32) if cfg.store_points
+                else full((0, 0), 0.0, torch.float32)),
+        npts=full((c,), 0, I32),
+        tombstones=scalar.clone(),
+        drops=scalar.clone(),
+        grid=full((gx * gy * gz,), -1, I32),
+        next_slot=scalar.clone(),
+        packed=(full((c, cfg.packed_width), _PK_SENT32, I32) if cfg.packed_nn
+                else full((0, 0), 0, I32)),
+    )
+
+
+def voxel_of(points: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """Truncation-toward-zero voxel index (reference
+    calculation_helpers.cpp:142-147): f32 division, then truncation."""
+    return _tdiv(points.to(torch.float32), _f32(voxel_size)).to(I32)
+
+
+def pack_key(vox: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int32 voxel -> wrapped non-negative int32 key in [0, 2^30)."""
+    x = vox[..., 0] & _KEY_MASK
+    y = vox[..., 1] & _KEY_MASK
+    z = vox[..., 2] & _KEY_MASK
+    return (x << (2 * _KEY_BITS)) | (y << _KEY_BITS) | z
+
+
+def unpack_key_rel(key: torch.Tensor, origin_vox: torch.Tensor) -> torch.Tensor:
+    """Wrapped signed voxel offset of `key` from `origin_vox` (..., 3)."""
+    half = 1 << (_KEY_BITS - 1)
+    out = []
+    for axis, shift in ((0, 2 * _KEY_BITS), (1, _KEY_BITS), (2, 0)):
+        v = (key >> shift) & _KEY_MASK
+        d = (v - (origin_vox[..., axis] & _KEY_MASK)) & _KEY_MASK
+        out.append(torch.where(d >= half, d - (_KEY_MASK + 1), d))
+    return torch.stack(out, dim=-1).to(I32)
+
+
+def grid_pos(keys: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
+    """Dense-grid cell of a packed key (each wrapped axis field wrapped
+    again to the power-of-two grid dimension)."""
+    gx, gy, gz = cfg.grid_dims
+    x = (keys >> (2 * _KEY_BITS)) & (gx - 1)
+    y = (keys >> _KEY_BITS) & (gy - 1)
+    z = keys & (gz - 1)
+    return (x * gy + y) * gz + z
+
+
+def _fp_of(keys: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
+    """Grid-cell fingerprint: exactly the key bits `grid_pos` discards, so
+    a fingerprint match is full key verification."""
+    lgx, lgy, lgz = _grid_log2(cfg)
+    xhi = keys >> (2 * _KEY_BITS + lgx)
+    yhi = (keys >> (_KEY_BITS + lgy)) & ((1 << (_KEY_BITS - lgy)) - 1)
+    zhi = (keys >> lgz) & ((1 << (_KEY_BITS - lgz)) - 1)
+    return (((xhi << (_KEY_BITS - lgy)) | yhi) << (_KEY_BITS - lgz)) | zhi
+
+
+def _pkl_wrapped_key_voxel(keys, axis_shift: int, vox_axis):
+    kf = (keys >> axis_shift) & _KEY_MASK
+    half = 1 << (_KEY_BITS - 1)
+    d = (kf - (vox_axis & _KEY_MASK) + half) & _KEY_MASK
+    return vox_axis + (d - half)
+
+
+def _pk_encode(x, y, z, keys, voxel_size: float) -> torch.Tensor:
+    """World f32 coordinates + their stored keys -> packed i32 (10 bits/axis
+    of position inside the 3-voxel window centred on the key voxel)."""
+    inv = _f32(_PKL_MAX / (_PKL_SPAN * voxel_size))
+    halfspan = _f32(0.5 * _PKL_SPAN * voxel_size)
+    vs = _f32(voxel_size)
+
+    def ch(c, shift):
+        vox_axis = _tdiv(c, vs).to(I32)
+        kv = _pkl_wrapped_key_voxel(keys, shift, vox_axis)
+        local = c - kv.to(torch.float32) * vs
+        q = torch.round((local + halfspan) * inv).to(I32)
+        return torch.clamp(q, 0, _PKL_MAX)
+
+    return (ch(x, 2 * _KEY_BITS) << (2 * _PKL_BITS)) | (ch(y, _KEY_BITS) << _PKL_BITS) | ch(z, 0)
+
+
+def _pk_decode_axis(p, shift: int, kv_axis, aoff, voxel_size: float):
+    """One axis of the packed decode, relative to the anchor (see JAX)."""
+    scale = _f32(_PKL_SPAN * voxel_size / _PKL_MAX)
+    halfspan = _f32(0.5 * _PKL_SPAN * voxel_size)
+    q = (p >> shift) & _PKL_MAX
+    local = q.to(torch.float32) * scale - halfspan
+    return kv_axis.to(torch.float32) * _f32(voxel_size) + local + aoff
+
+
+def _lookup(m: VoxelMap, qkeys, qvalid, cfg: MapConfig) -> torch.Tensor:
+    """Grid lookup with in-cell fingerprint verification; slot or -1."""
+    sb = _slot_bits(cfg)
+    cell = m.grid[grid_pos(qkeys, cfg).long()]
+    ok = qvalid & (cell >= 0) & ((cell >> sb) == _fp_of(qkeys, cfg))
+    return torch.where(ok, cell & ((1 << sb) - 1), torch.full_like(cell, -1))
+
+
+def num_voxels(m: VoxelMap) -> torch.Tensor:
+    return torch.sum(m.keys >= 0).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# dropping scatter
+# ---------------------------------------------------------------------------
+
+
+def _spare_buffer(t: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """A flat (numel + 1,) buffer whose first numel elements hold `t`.
+
+    In place: when `t` is already the front view of such a buffer (every
+    table this module returns is), that buffer itself; otherwise a copy."""
+    n = t.numel()
+    b = t._base
+    if (inplace and b is not None and b.dim() == 1 and b.numel() == n + 1
+            and t.is_contiguous() and b.data_ptr() == t.data_ptr()):
+        return b
+    b = torch.empty(n + 1, dtype=t.dtype, device=t.device)
+    b[:n].copy_(t.reshape(-1))
+    return b
+
+
+def _scatter(t: torch.Tensor, flat_idx, vals, ok, inplace: bool,
+             reduce: str | None = None) -> torch.Tensor:
+    """t.flat[flat_idx[ok]] = vals[ok] (or amax with `reduce="amax"`);
+    not-ok entries land in the spare element and are dropped."""
+    n = t.numel()
+    b = _spare_buffer(t, inplace)
+    idx = torch.where(ok, flat_idx.to(I64), torch.full_like(flat_idx, n, dtype=I64))
+    vals = vals.to(t.dtype).expand(idx.shape)
+    if reduce is None:
+        b.index_put_((idx,), vals)
+    else:
+        b.scatter_reduce_(0, idx, vals, reduce=reduce, include_self=True)
+    return b[:n].view(t.shape)
+
+
+def _fresh(shape, fill, dtype, device) -> torch.Tensor:
+    """A new table with a spare element behind it (see `_spare_buffer`)."""
+    n = int(np.prod(shape))
+    return torch.full((n + 1,), fill, dtype=dtype, device=device)[:n].view(shape)
+
+
+# ---------------------------------------------------------------------------
+# downsampling (reference icp.cpp:9-30)
+# ---------------------------------------------------------------------------
+
+
+def _first_valid(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first true entry (0 when none) — jnp.argmax(mask)."""
+    return torch.argmax(mask.to(torch.uint8))
+
+
+def _shift_prev(a: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.full((1,), -9, dtype=a.dtype, device=a.device), a[:-1]])
+
+
+def first_point_per_voxel(points, mask, voxel_size: float, out_capacity: int):
+    """Keep the first valid point of each voxel (reference icp.cpp:9-30).
+
+    One int64 sort of (15-bit/axis anchor-relative voxel | index) groups the
+    points, a second payload sort compacts the winners — the same keys as
+    the JAX package, so the same order. Returns (out_points (M, 3) f32,
+    out_mask (M,), n_unique (), window_drops ())."""
+    n = points.shape[0]
+    if n > (1 << _IDX_BITS):
+        raise ValueError(f"{n} points exceed the packed-sort budget")
+    dev = points.device
+    vox = voxel_of(points, voxel_size)
+    idx = torch.arange(n, dtype=I64, device=dev)
+    a = _first_valid(mask)
+    local = (vox - vox[a][None, :]).to(I64) + (1 << (_LOCAL_BITS - 1))
+    in_window = torch.all((local >= 0) & (local < (1 << _LOCAL_BITS)), dim=-1)
+    valid = mask & in_window
+    window_drops = torch.sum(mask & ~in_window).to(I32)
+    key = (local[:, 0] << (2 * _LOCAL_BITS)) | (local[:, 1] << _LOCAL_BITS) | local[:, 2]
+    packed = torch.where(valid, (key << _IDX_BITS) | idx,
+                         torch.full_like(key, _SENTINEL))
+    s = torch.sort(packed).values
+    order = s & ((1 << _IDX_BITS) - 1)
+    group = s >> _IDX_BITS
+    valid_s = s < _SENTINEL
+
+    first = valid_s & (group != _shift_prev(group))
+    out_idx = torch.cumsum(first.to(I64), 0) - 1
+    n_found = torch.clamp(out_idx[-1] + 1, min=0)
+    n_unique = torch.clamp(n_found, max=out_capacity).to(I32)
+
+    drop = ~(first & (out_idx < out_capacity))
+    packed2 = (drop.to(I64) << 62) | (out_idx << _IDX_BITS) | order
+    if n < out_capacity:
+        packed2 = torch.cat([packed2, torch.full((out_capacity - n,), _SENTINEL,
+                                                 dtype=I64, device=dev)])
+    idx_sel = torch.sort(packed2).values[:out_capacity] & ((1 << _IDX_BITS) - 1)
+    out_mask = torch.arange(out_capacity, dtype=I32, device=dev) < n_unique
+    gathered = points[torch.clamp(idx_sel, max=n - 1)]
+    out = torch.where(out_mask[:, None], gathered, torch.zeros_like(gathered))
+    return out, out_mask, n_unique, window_drops
+
+
+def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
+                     tau=None) -> GroupedCloud:
+    """First-point-per-(voxel/2) downsample grouped by the full voxel, from
+    ONE int64 sort of (coarse | fine | [12-bit tau] | index), exactly the
+    JAX package's key layout (`fused_downsample`, voxel_map.py:599). With
+    `tau` the within-cell winner is the earliest point (quantized ties fall
+    back to sensor order)."""
+    n = points.shape[0]
+    if not out_capacity <= n <= (1 << _IDX_BITS):
+        raise ValueError(f"fused_downsample takes out_capacity ({out_capacity}) to "
+                         f"{1 << _IDX_BITS} rows, got {n}")
+    dev = points.device
+    fine = voxel_of(points, 0.5 * voxel_size)
+    # truncation-toward-zero halving (== voxel_of(points, voxel_size))
+    coarse = (fine + ((fine >> 31) & 1)) >> 1
+    fres = fine - 2 * coarse + 1
+
+    a = _first_valid(mask)
+    local_c = coarse - coarse[a][None, :] + (1 << (_DS_BITS - 1))
+    in_window = torch.all((local_c >= 0) & (local_c < (1 << _DS_BITS)), dim=-1)
+    valid = mask & in_window
+    window_drops = torch.sum(mask & ~in_window).to(I32)
+
+    lc = local_c.to(I64)
+    ckey = (lc[:, 0] << (2 * _DS_BITS)) | (lc[:, 1] << _DS_BITS) | lc[:, 2]
+    fkey = (fres[:, 0] << 4) | (fres[:, 1] << 2) | fres[:, 2]
+    key = (ckey << 6) | fkey.to(I64)
+    low_bits = _IDX_BITS
+    low = torch.arange(n, dtype=I64, device=dev)
+    if tau is not None:
+        tmax = (1 << _TAU_BITS) - 1
+        tq = torch.clamp(tau.to(torch.float32) * float(tmax), 0.0, float(tmax))
+        low = (tq.to(I64) << _IDX_BITS) | low
+        low_bits += _TAU_BITS
+    packed = torch.where(valid, (key << low_bits) | low,
+                         torch.full_like(key, _SENTINEL))
+    s = torch.sort(packed).values
+
+    idx_s = s & ((1 << _IDX_BITS) - 1)
+    fine_key = s >> low_bits
+    coarse_key = s >> (low_bits + 6)
+    valid_s = s < _SENTINEL
+    first = valid_s & (fine_key != _shift_prev(fine_key))
+    c_first = valid_s & (coarse_key != _shift_prev(coarse_key))
+
+    out_idx = torch.cumsum(first.to(I64), 0) - 1
+    n_found = torch.clamp(out_idx[-1] + 1, min=0)
+    n_unique = torch.clamp(n_found, max=out_capacity).to(I32)
+    head_out = torch.cummax(torch.where(c_first, out_idx, torch.zeros_like(out_idx)), 0).values
+
+    payload = ((out_idx << 37) | (head_out << 19)
+               | (c_first.to(I64) << 18) | idx_s)
+    drop = ~(first & (out_idx < out_capacity))
+    sorted2 = torch.sort((drop.to(I64) << 62) | payload).values[:out_capacity]
+    m18 = (1 << 18) - 1
+    idx_sel = sorted2 & m18
+    cfirst_sel = ((sorted2 >> 18) & 1).to(torch.bool)
+    head_sel = ((sorted2 >> 19) & m18).to(I32)
+    oidx_sel = ((sorted2 >> 37) & m18).to(I32)
+
+    out_pts = points[torch.clamp(idx_sel, max=n - 1)].to(torch.float32)
+    out_mask = torch.arange(out_capacity, dtype=I32, device=dev) < n_unique
+    return GroupedCloud(
+        points=torch.where(out_mask[:, None], out_pts, torch.zeros_like(out_pts)),
+        mask=out_mask,
+        head=cfirst_sel & out_mask,
+        head_pos=torch.clamp(head_sel, max=out_capacity - 1),
+        rank=torch.clamp(oidx_sel - head_sel, 0, _RANK_CAP),
+        n_unique=n_unique,
+        window_drops=window_drops,
+    )
+
+
+# ---------------------------------------------------------------------------
+# candidate fetch for the GN kernel
+# ---------------------------------------------------------------------------
+
+
+def _neighbor_voxels(queries, cfg: MapConfig) -> torch.Tensor:
+    """(NB, N, 3) int32 candidate voxels of each query, neighbour-major."""
+    dev = queries.device
+    q = queries.to(torch.float32)
+    if cfg.neighborhood == 8:
+        # 2x2x2 cover of the +-half-voxel cube around the query
+        half = _f32(0.5 * cfg.voxel_size)
+        lo = voxel_of(q - half, cfg.voxel_size)
+        hi = voxel_of(q + half, cfg.voxel_size)
+        b = torch.arange(8, device=dev)
+        offs = torch.stack([(b >> 2) & 1, (b >> 1) & 1, b & 1], dim=-1)  # ij order
+        return torch.where(offs[:, None, :] == 0, lo[None], hi[None])
+    b = torch.arange(27, device=dev)
+    offs = torch.stack([b // 9 - 1, (b // 3) % 3 - 1, b % 3 - 1], dim=-1).to(I32)
+    return voxel_of(q, cfg.voxel_size)[None] + offs[:, None, :]
+
+
+def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
+                                   anchor) -> torch.Tensor:
+    """Candidate fetch for the GN kernel from the packed i32 slab.
+
+    queries (N, 3) f32 world frame; anchor (3,) centering offset (any
+    dtype; used in f64). Returns (3, NC, N) f32 candidate coordinates
+    centred on `anchor`, NC = Kp * NB, candidate j = kp * NB + nb — the JAX
+    package's (3, NC, N/128, 128) planes without the lane split. +inf marks
+    absent voxels and unused lanes (they lose the kernel's running min)."""
+    kn = cfg.packed_width
+    n = queries.shape[0]
+    nbr = _neighbor_voxels(queries, cfg)  # (NB, N, 3)
+    nb = nbr.shape[0]
+    nkeys = pack_key(nbr).reshape(-1)
+    slots = _lookup(m, nkeys, qmask.repeat(nb), cfg)
+    present = slots >= 0
+    safe = torch.where(present, slots, torch.zeros_like(slots))
+    pk = m.packed[safe.long()].T  # (Kp, NB*N)
+    pk = torch.where(present[None, :], pk, torch.full_like(pk, _PK_SENT32))
+    vs = cfg.voxel_size
+    a64 = anchor.to(torch.float64)
+    av = torch.round(_tdiv(a64, vs)).to(I32)
+    aoff = (av.to(torch.float64) * vs - a64).to(torch.float32)
+    kv_rel = (nbr - av[None, None, :]).reshape(-1, 3)
+    bad = pk < 0
+    inf = torch.full(pk.shape, float("inf"), dtype=torch.float32, device=pk.device)
+    planes = torch.stack([
+        torch.where(bad, inf, _pk_decode_axis(pk, shift, kv_rel[None, :, axis], aoff[axis], vs))
+        for axis, shift in ((0, 2 * _PKL_BITS), (1, _PKL_BITS), (2, 0))
+    ])  # (3, Kp, NB*N)
+    return planes.reshape(3, kn * nb, n)
+
+
+# ---------------------------------------------------------------------------
+# insert (reference voxel_hash_map.cpp:12-62)
+# ---------------------------------------------------------------------------
+
+
+def _write_rows(m: VoxelMap, g: GroupedCloud, keys, row, pos, ok, cfg: MapConfig,
+                inplace: bool):
+    """Write the kept rows' points into the f32 slab and the packed slab."""
+    k = cfg.max_points_per_voxel
+    cap = cfg.capacity
+    new_points = m.points
+    if m.points.numel():
+        for c in range(3):
+            new_points = _scatter(new_points, row * (3 * k) + pos * 3 + c,
+                                  g.points[:, c], ok & (row < cap), inplace)
+    new_packed = m.packed
+    if cfg.packed_nn:
+        kp = cfg.packed_width
+        pk = _pk_encode(g.points[:, 0], g.points[:, 1], g.points[:, 2], keys, cfg.voxel_size)
+        new_packed = _scatter(m.packed, row * kp + pos, pk,
+                              ok & (row < cap) & (pos < kp), inplace)
+    return new_points, new_packed
+
+
+def _insert_grouped_compact(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys,
+                            inplace: bool) -> VoxelMap:
+    """`insert_grouped` with the per-voxel accesses at head width
+    H = cfg.max_insert_voxels (JAX voxel_map.py:998). Groups beyond H (in
+    voxel-key order) are dropped whole and counted in `drops`."""
+    k = cfg.max_points_per_voxel
+    capacity = cfg.capacity
+    mrows = g.points.shape[0]
+    h_cap = cfg.max_insert_voxels
+    sb = _slot_bits(cfg)
+    dev = keys.device
+
+    active_head = g.head & g.mask
+    hp = torch.where(active_head, torch.arange(mrows, dtype=I64, device=dev),
+                     torch.full((mrows,), mrows, dtype=I64, device=dev))
+    heads_ext = torch.sort(hp).values[: h_cap + 1].to(I32)
+    heads_idx = heads_ext[:h_cap]
+    valid_h = heads_idx < mrows
+    n_heads_total = torch.sum(active_head).to(I32)
+    capped = torch.clamp(n_heads_total - h_cap, min=0)
+
+    safe_row = torch.clamp(heads_idx, max=mrows - 1).long()
+    keys_h = torch.where(valid_h, keys[safe_row], torch.zeros_like(heads_idx))
+    fp_h = _fp_of(keys_h, cfg)
+    gp_h = grid_pos(keys_h, cfg)
+
+    cell = m.grid[torch.where(valid_h, gp_h, torch.zeros_like(gp_h)).long()]
+    found = valid_h & (cell >= 0) & ((cell >> sb) == fp_h)
+    missing = valid_h & ~found
+    rank_m = (torch.cumsum(missing.to(I32), 0) - 1).to(I32)
+    cand_slot = m.next_slot + rank_m
+    alloc = missing & (cand_slot < capacity)
+    n_missing = torch.sum(missing).to(I32)
+    new_next = torch.clamp(m.next_slot + n_missing, max=capacity).to(I32)
+    dropped = (torch.sum(missing & ~alloc) + capped).to(I32)
+
+    minus1 = torch.full_like(cand_slot, -1)
+    head_slot = torch.where(found, cell & ((1 << sb) - 1),
+                            torch.where(alloc, cand_slot, minus1))
+    ok_head = valid_h & (head_slot >= 0)
+
+    slot_safe = torch.where(ok_head, head_slot, torch.zeros_like(head_slot))
+    base_h = torch.where(ok_head, m.npts[slot_safe.long()], torch.zeros_like(head_slot))
+    n_valid_rows = torch.sum(g.mask).to(I32)
+    next_row = torch.minimum(heads_ext[1:], n_valid_rows)
+    gsize = torch.clamp(next_row - heads_idx, min=0)
+    new_count = torch.clamp(base_h + gsize, max=k)
+
+    new_grid = _scatter(m.grid, gp_h, (fp_h << sb) | cand_slot, alloc, inplace)
+    new_keys = _scatter(m.keys, head_slot, keys_h, ok_head, inplace)
+    new_npts = _scatter(m.npts, head_slot, new_count, ok_head, inplace, reduce="amax")
+
+    # members: head ordinal by running count, one gather of the packed
+    # per-head info word (slot | base 4b | ok 1b)
+    info_h = (head_slot << 5) | (base_h << 1) | ok_head.to(I32)
+    h_ord = (torch.cumsum(active_head.to(I32), 0) - 1).to(I32)
+    info = info_h[torch.clamp(h_ord, 0, h_cap - 1).long()]
+    ok = g.mask & (h_ord >= 0) & (h_ord < h_cap) & ((info & 1) == 1)
+    zero = torch.zeros_like(info)
+    slot = torch.where(ok, info >> 5, zero)
+    base = torch.where(ok, (info >> 1) & 0xF, zero)
+    pos = base + g.rank
+    ok = ok & (pos < k)
+    row = torch.where(ok, slot, torch.full_like(slot, capacity))
+    new_points, new_packed = _write_rows(m, g, keys, row, pos, ok, cfg, inplace)
+    return VoxelMap(new_keys, new_points, new_npts, m.tombstones,
+                    (m.drops + dropped).to(I32), new_grid, new_next, new_packed)
+
+
+def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys=None,
+                   inplace: bool = False) -> VoxelMap:
+    """Insert a pre-grouped compacted cloud (`fused_downsample` output).
+
+    Within a voxel, earlier positions win the block's remaining capacity
+    (reference voxel_hash_map.cpp:48-61). Missing voxels take bump-cursor
+    slots; a resurrected (evicted) slot restarts at row 0 through its stale
+    grid cell. See JAX voxel_map.py:1108 for the design."""
+    k = cfg.max_points_per_voxel
+    capacity = cfg.capacity
+    if keys is None:
+        keys = pack_key(voxel_of(g.points, cfg.voxel_size))
+    if (0 < cfg.max_insert_voxels < g.points.shape[0] and k <= 15
+            and _slot_bits(cfg) <= 26):
+        return _insert_grouped_compact(m, g, cfg, keys, inplace)
+    sb = _slot_bits(cfg)
+    fp = _fp_of(keys, cfg)
+    gp = grid_pos(keys, cfg)
+
+    active_head = g.head & g.mask
+    cell = m.grid[gp.long()]
+    found = active_head & (cell >= 0) & ((cell >> sb) == fp)
+    missing = active_head & ~found
+    rank_m = (torch.cumsum(missing.to(I32), 0) - 1).to(I32)
+    cand_slot = m.next_slot + rank_m
+    alloc = missing & (cand_slot < capacity)
+    n_missing = torch.sum(missing).to(I32)
+    new_next = torch.clamp(m.next_slot + n_missing, max=capacity).to(I32)
+    dropped = torch.sum(missing & ~alloc).to(I32)
+
+    head_slot = torch.where(found, cell & ((1 << sb) - 1),
+                            torch.where(alloc, cand_slot, torch.full_like(cand_slot, -1)))
+    ok_head = active_head & (head_slot >= 0)
+    new_grid = _scatter(m.grid, gp, (fp << sb) | cand_slot, alloc, inplace)
+    new_keys = _scatter(m.keys, head_slot, keys, ok_head, inplace)
+
+    # resolve every row through the updated grid; base = pre-insert count
+    cell2 = new_grid[gp.long()]
+    ok = g.mask & (cell2 >= 0) & ((cell2 >> sb) == fp)
+    zero = torch.zeros_like(cell2)
+    slot = torch.where(ok, cell2 & ((1 << sb) - 1), zero)
+    base = torch.where(ok, m.npts[slot.long()], zero)
+    pos = base + g.rank
+    ok = ok & (pos < k)
+    row = torch.where(ok, slot, torch.full_like(slot, capacity))
+    new_points, new_packed = _write_rows(m, g, keys, row, pos, ok, cfg, inplace)
+    new_npts = _scatter(m.npts, row, pos + 1, ok, inplace, reduce="amax")
+    return VoxelMap(new_keys, new_points, new_npts, m.tombstones,
+                    (m.drops + dropped).to(I32), new_grid, new_next, new_packed)
+
+
+# ---------------------------------------------------------------------------
+# eviction (reference voxel_hash_map.cpp:146-171) / compaction
+# ---------------------------------------------------------------------------
+
+
+def evict_far(m: VoxelMap, origin, cfg: MapConfig, exact_boundary: bool = False,
+              inplace: bool = False) -> VoxelMap:
+    """Tombstone voxels whose voxel-index distance (scaled to metres) from
+    `origin` exceeds max_range. The grid is left untouched (a stale cell
+    resolves to the tombstoned slot, whose rows read as empty). The
+    `exact_boundary` per-point variant waits for the classic-path slice."""
+    if exact_boundary:
+        raise NotImplementedError(
+            "exact_boundary eviction comes with the classic f64 path slice"
+        )
+    occupied = m.keys >= 0
+    origin_vox = voxel_of(origin.to(torch.float32), cfg.voxel_size)
+    dvox = unpack_key_rel(torch.where(occupied, m.keys, torch.zeros_like(m.keys)),
+                          origin_vox).to(torch.float32) * _f32(cfg.voxel_size)
+    d2 = dvox[:, 0] * dvox[:, 0] + dvox[:, 1] * dvox[:, 1] + dvox[:, 2] * dvox[:, 2]
+    far = occupied & (d2 > _f32(cfg.max_range**2))
+    tomb = (m.tombstones + torch.sum(far)).to(I32)
+    if inplace:
+        m.keys.masked_fill_(far, DELETED)
+        if m.points.numel():
+            m.points.masked_fill_(far[:, None], float("inf"))
+        if m.packed.numel():
+            m.packed.masked_fill_(far[:, None], _PK_SENT32)
+        m.npts.masked_fill_(far, 0)
+        return m._replace(tombstones=tomb)
+
+    def keep_spare(t, fill, sel):
+        out = _spare_buffer(t, False)[: t.numel()].view(t.shape)
+        return out.masked_fill_(sel, fill)
+
+    return VoxelMap(
+        keep_spare(m.keys, DELETED, far),
+        keep_spare(m.points, float("inf"), far[:, None]) if m.points.numel() else m.points,
+        keep_spare(m.npts, 0, far),
+        tomb,
+        m.drops,
+        m.grid,
+        m.next_slot,
+        keep_spare(m.packed, _PK_SENT32, far[:, None]) if m.packed.numel() else m.packed,
+    )
+
+
+def rebuild(m: VoxelMap, cfg: MapConfig) -> VoxelMap:
+    """Compact live slots to the front of the slab (reclaims evicted
+    slots): order-preserving move, dense grid regenerated, cursor reset."""
+    dev = m.keys.device
+    occupied = m.keys >= 0
+    live_keys = torch.where(occupied, m.keys, torch.zeros_like(m.keys))
+    rank = (torch.cumsum(occupied.to(I32), 0) - 1).to(I32)
+
+    def moved(t, fill):
+        row = t.shape[1] if t.dim() == 2 else 1
+        out = _fresh(t.shape, fill, t.dtype, dev)
+        cols = torch.arange(row, device=dev, dtype=I64)
+        flat = (rank.to(I64)[:, None] * row + cols[None, :]).reshape(-1)
+        ok = occupied[:, None].expand(-1, row).reshape(-1)
+        return _scatter(out, flat, t.reshape(-1), ok, inplace=True)
+
+    new_keys = moved(m.keys, EMPTY)
+    pts = moved(m.points, float("inf")) if m.points.numel() else m.points
+    npts = moved(torch.where(occupied, m.npts, torch.zeros_like(m.npts)), 0)
+    sb = _slot_bits(cfg)
+    grid = _scatter(_fresh(m.grid.shape, -1, I32, dev), grid_pos(live_keys, cfg),
+                    (_fp_of(live_keys, cfg) << sb) | rank, occupied, inplace=True)
+    packed = moved(m.packed, _PK_SENT32) if m.packed.numel() else m.packed
+    n_live = torch.sum(occupied).to(I32)
+    return VoxelMap(new_keys, pts, npts, torch.zeros((), dtype=I32, device=dev),
+                    m.drops, grid, n_live, packed)

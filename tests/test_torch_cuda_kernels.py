@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device. The file
+imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+(`--noconftest`: tests/conftest.py configures JAX for the CPU suite).
+
+Tolerances: K2 / K3 1e-9 (both sides f64, different operation order); K1
+R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within 1 (the f32
+per-query work may contract into FMAs in the kernel); card against CPU
+poses 1e-4 over a short drive.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lidar_imu_slam_tpu_torch import config as cfgmod
+from lidar_imu_slam_tpu_torch.host import synthetic
+from lidar_imu_slam_tpu_torch.models import kiss_icp
+from lidar_imu_slam_tpu_torch.ops import lie, voxel_map
+from lidar_imu_slam_tpu_torch.ops.kernels import _common, icp_gn, pose_chain
+from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan, preprocess_scan
+
+pytestmark = pytest.mark.cuda
+
+KW = dict(min_motion_th=0.1, initial_threshold=2.0, max_range=30.0)
+F64 = torch.float64
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
+    return torch.device("cuda", 0)
+
+
+def _pose(rng, scale_t, scale_r):
+    xi = np.concatenate([rng.normal(size=3) * scale_t, rng.normal(size=3) * scale_r])
+    return lie.se3_exp(torch.from_numpy(xi))
+
+
+@pytest.mark.parametrize("num_poses", [0, 1, 2, 5])
+@pytest.mark.parametrize("deskew_on", [True, False])
+def test_pose_pre_kernel_matches_plain(dev, num_poses, deskew_on):
+    rng = np.random.default_rng(num_poses)
+    prev = _pose(rng, 300.0, 0.5)
+    args = (prev @ _pose(rng, 0.5, 0.02), prev, _pose(rng, 300.0, 0.5),
+            torch.tensor(1.234, dtype=F64), _pose(rng, 0.05, 0.01),
+            torch.tensor(num_poses, dtype=torch.int32), torch.tensor(7, dtype=torch.int32))
+    args = tuple(a.to(dev) for a in args)
+    before = _common.LAUNCHES["pose_pre"]
+    row = pose_chain.pose_pre(*args, deskew_on=deskew_on, **KW)
+    assert _common.LAUNCHES["pose_pre"] == before + 1
+    ref = pose_chain.pose_pre_ref(*args, deskew_on=deskew_on, **KW)
+    torch.testing.assert_close(row, ref, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("diverge", [False, True])
+def test_pose_post_kernel_matches_plain(dev, diverge):
+    rng = np.random.default_rng(10 + diverge)
+    corr = _pose(rng, 20.0 if diverge else 0.05, 0.001)
+    guess = _pose(rng, 500.0, 0.5)
+    c = torch.cat([corr[:3, :3].reshape(9), corr[:3, 3]]).to(dev)
+    g = torch.cat([guess[:3, :3].reshape(9), guess[:3, 3]]).to(dev)
+    post = pose_chain.pose_post(c, g, max_model_deviation=10.0)
+    ref = pose_chain.pose_post_ref(c, g, max_model_deviation=10.0)
+    torch.testing.assert_close(post, ref, rtol=0, atol=1e-9)
+    assert float(post[12]) == float(diverge)
+
+
+@pytest.mark.parametrize("offset", [0.0, 300.0])
+@pytest.mark.parametrize("n_inner", [1, 6])
+def test_fused_gn_carry_kernel_matches_plain(dev, offset, n_inner):
+    cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 13, neighborhood=8)
+    rng = np.random.default_rng(0)
+    world = torch.from_numpy(rng.uniform(-18, 18, (4096, 3)).astype(np.float32) + offset).to(dev)
+    g = voxel_map.fused_downsample(world, torch.ones(4096, dtype=torch.bool, device=dev),
+                                   cfg.voxel_size, 4096)
+    m = voxel_map.insert_grouped(voxel_map.create(cfg, dev), g, cfg)
+    src = world[:1024] - torch.tensor([0.25, -0.15, 0.1], device=dev)
+    anchor = src.mean(0)
+    q = (src - anchor).T.contiguous()
+    mask = torch.ones(1024, dtype=torch.bool, device=dev)
+    cand = voxel_map.gather_candidate_planes_packed(m, src, mask, cfg, anchor).contiguous()
+    scal = torch.tensor([0.5, 2.25, 1e-5, 20.0, 2.0, 0.25, 0.0, 0.0], dtype=F64, device=dev)
+    carry = torch.cat([torch.eye(3, dtype=F64, device=dev).reshape(9),
+                       torch.zeros(3, dtype=F64, device=dev), anchor.double()])
+    qm = mask.float()
+    row = icp_gn.fused_gn_carry(q, qm, cand, scal, carry, n_inner).cpu().numpy()
+    ref = icp_gn.fused_gn_carry_ref(q, qm, cand, scal, carry, n_inner).cpu().numpy()
+    np.testing.assert_allclose(row[:9], ref[:9], atol=1e-5)
+    np.testing.assert_allclose(row[9:12], ref[9:12], atol=1e-4)
+    assert row[14] == ref[14] and row[15] == ref[15]
+    assert abs(row[12] - ref[12]) <= 1
+    if n_inner == 6:  # converged onto the true offset
+        np.testing.assert_allclose(row[9:12], [0.25, -0.15, 0.1], atol=0.02)
+
+
+def test_kernel_rejects_wrong_dtype_on_card(dev):
+    with pytest.raises(TypeError):
+        pose_chain.pose_post(torch.zeros(12, device=dev), torch.zeros(12, dtype=F64, device=dev),
+                             max_model_deviation=1.0)
+
+
+def test_drive_card_matches_cpu(dev):
+    cfg = cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
+                                 sort_by_time=False, time_source="per_point"),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
+                             neighborhood=8, store_points=False),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
+                             max_iterations=20, gn_backend="pallas", deskew=True),
+    )
+    world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
+    gt = synthetic.make_trajectory(n_poses=4, speed=2.0, yaw_rate=0.03, dt=0.1)
+    states = {d: kiss_icp.init_state(cfg, d) for d in (dev, "cpu")}
+    _common.reset_launches()
+    for i in range(4):
+        pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[min(i + 1, 3)], 0.1,
+                                                 1500, 0.5, 30.0, noise=0.01, seed=i)
+        poses = []
+        for d in (dev, "cpu"):
+            raw = pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048,
+                                device=d)
+            states[d], out = kiss_icp.register_frame_step(states[d], preprocess_scan(
+                raw, cfg.lidar), cfg)
+            poses.append(out.pose.cpu())
+        torch.testing.assert_close(poses[0], poses[1], rtol=0, atol=1e-4)
+    assert _common.LAUNCHES["pose_pre"] == _common.LAUNCHES["pose_post"] == 4
+    assert _common.LAUNCHES["fused_gn_carry"] >= 4

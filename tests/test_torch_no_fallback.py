@@ -1,0 +1,119 @@
+"""Guards for the port's no-fallback rule: without a card `chip_smoke.py`
+fails and prints no result; a kernel wrapper given non-CPU tensors builds /
+loads its kernel or raises — it never runs the plain version; the build
+raises with nvcc's stderr."""
+
+import os
+import shutil
+import stat
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from lidar_imu_slam_tpu_torch.ops.kernels import _build, _common, icp_gn, pose_chain
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card(where, tmp_path):
+    if where == "alone":
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    else:
+        cwd = REPO
+    proc = _run_smoke(cwd)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def _fail_load():
+    raise _build.KernelBuildError("no kernel library (test)")
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    monkeypatch.setattr(_build, "load", _fail_load)
+    monkeypatch.setattr(pose_chain, "_fns", {})
+    monkeypatch.setattr(icp_gn, "_fn", None)
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for non-CPU tensors")
+
+    monkeypatch.setattr(pose_chain, "pose_pre_ref", forbidden)
+    monkeypatch.setattr(pose_chain, "pose_post_ref", forbidden)
+    monkeypatch.setattr(icp_gn, "fused_gn_carry_ref", forbidden)
+
+
+@pytest.mark.parametrize("kernel", ["pose_pre", "pose_post", "fused_gn_carry"])
+def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
+    f64, f32, i32 = torch.float64, torch.float32, torch.int32
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        if kernel == "pose_pre":
+            pose_chain.pose_pre(
+                _meta((4, 4), f64), _meta((4, 4), f64), _meta((4, 4), f64), _meta((), f64),
+                _meta((4, 4), f64), _meta((), i32), _meta((), i32), min_motion_th=0.1,
+                initial_threshold=2.0, max_range=30.0, deskew_on=True)
+        elif kernel == "pose_post":
+            pose_chain.pose_post(_meta((15,), f64), _meta((32,), f64), max_model_deviation=1.0)
+        else:
+            icp_gn.fused_gn_carry(_meta((3, 256), f32), _meta((256,), f32),
+                                  _meta((3, 80, 256), f32), _meta((8,), f64),
+                                  _meta((15,), f64), 6)
+    assert _common.LAUNCHES == before
+
+
+def test_mixed_devices_rejected():
+    with pytest.raises(ValueError, match="mixed"):
+        _common.on_cpu(torch.zeros(1), _meta((1,), torch.float32))
+
+
+def test_build_raises_when_nvcc_missing(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build()
+
+
+def test_build_raises_with_compiler_stderr(monkeypatch, tmp_path):
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'csrc/icp_gn.cu(1): error: fake failure' >&2\nexit 2\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(_build.KernelBuildError, match="fake failure") as exc:
+        _build.build()
+    assert "exit 2" in str(exc.value)
+    assert not any(p.endswith(".so") for p in os.listdir(tmp_path / "build"))
+
+
+def test_build_is_keyed_on_the_sources(monkeypatch, tmp_path):
+    h = _build.source_hash()
+    assert h == _build.source_hash() and len(h) == 16
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _build.sources():
+        shutil.copy(p, src)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(src))
+    assert _build.source_hash() == h
+    with open(src / "icp_gn.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _build.source_hash() != h
