@@ -19,7 +19,27 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    `register_frame_step` with eviction / conditional compaction every 10
    scans. Launch counters are zeroed just before it and read just after:
    every kernel must have run, K2 and K3 once per scan. Poses must be
-   finite and the ATE (mid-scan convention) at most 0.12 m.
+   finite and the ATE (mid-scan convention) at most 0.12 m;
+6. batched kernels: K4 `fused_gn` (one stream, 4096 x 80) and K5
+   `fused_gn_batched` at both batched deployments' shapes (8 streams x
+   4096 queries x 80 slots; 256 x 512 x 16), held against their plain
+   versions per stream and timed beside them;
+7. small batched drive: 3 streams x 5 small scans under `batch_config` on
+   the card and on the CPU, and 5 scans of one stream through
+   `register_frame` under `batch_config` (kernel K4, counted) — poses must
+   agree;
+8. multi-stream: the deployment of bench.py:_bench_batched_chained — the
+   HDL-64E config under `batch_config` (2 x 4 unroll), 8 streams x 60
+   scans of the slice's drive, stream s at step i on scan min(i + s, 59).
+   Every pose finite, stream 0's ATE at most 0.12 m, K5 launched exactly
+   2 x 60 times and K1-K3 never;
+9. Monte-Carlo: the deployment of bench.py:_bench_monte_carlo — 256
+   perturbed VLP-16 streams (sigma 0.01 m), 2 warm + 20 timed steps;
+   every stream must end within 0.5 m of the ground truth
+   (tracking_frac 1.0).
+One step of each batched drive runs under
+`torch.cuda.set_sync_debug_mode("error")`: the batched step never waits
+for the device.
 
 Prints one JSON line with the kernels' numbers, then, as the very last
 line, {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -42,6 +62,10 @@ N_SCANS = 120
 POINTS_PER_SCAN = 131072
 BLOCK = 10
 ATE_LIMIT_M = 0.12
+STREAMS = 8  # bench.py:_bench_batched_chained
+STREAM_SCANS = 60
+MC_STREAMS = 256  # bench.py:_bench_monte_carlo
+MC_STEPS = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -251,15 +275,12 @@ def _ate(poses, gt, shift=0.5):
     return float(np.sqrt(np.mean(np.sum(d**2, axis=-1))))
 
 
-def slice_phase(dev, cfg):
-    """The 120-scan HDL-64E-scale drive on the card."""
+def render_hdl_drive(dev):
+    """The HDL-64E rolling-shutter drive (bench.py:_make_raws), uploaded."""
     import torch
 
     from lidar_imu_slam_tpu_torch.host import synthetic
-    from lidar_imu_slam_tpu_torch.models import kiss_icp
-    from lidar_imu_slam_tpu_torch.ops import voxel_map
-    from lidar_imu_slam_tpu_torch.ops.kernels import _common
-    from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan, preprocess_scan
+    from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan
 
     t0 = time.perf_counter()
     world = synthetic.make_world(seed=0, n_points=600_000, extent=(160.0, 40.0, 12.0))
@@ -273,6 +294,17 @@ def slice_phase(dev, cfg):
                                   max_points=POINTS_PER_SCAN, device=dev))
     torch.cuda.synchronize()
     print(f"slice: rendered and uploaded {N_SCANS} scans in {time.perf_counter() - t0:.1f} s")
+    return raws, gt
+
+
+def slice_phase(dev, cfg, raws, gt):
+    """The 120-scan HDL-64E-scale drive on the card."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
 
     # eviction and compaction at block boundaries (bench.py:_bench_chained)
     body = cfg.replace(map=dataclasses.replace(cfg.map, auto_evict=False, auto_rebuild=False))
@@ -316,11 +348,289 @@ def slice_phase(dev, cfg):
     print(f"slice: ICP iterations mean {iters.mean():.2f} max {iters.max()}  "
           f"map voxels {voxels}  drops {drops}  launches {launches}")
     print(f"slice: ATE {ate:.4f} m (mid-scan, limit {ATE_LIMIT_M})")
-    for name, count in launches.items():
-        _require(count > 0, f"slice: kernel {name} never launched")
+    for name in ("fused_gn_carry", "pose_pre", "pose_post"):
+        _require(launches[name] > 0, f"slice: kernel {name} never launched")
     _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
              "slice: pose kernels did not run once per scan")
     _require(ate <= ATE_LIMIT_M, f"slice: ATE {ate:.4f} m above {ATE_LIMIT_M}")
+    return launches
+
+
+def mc_cfg(cfgmod):
+    """The Monte-Carlo VLP-16 deployment (bench.py:_bench_monte_carlo)."""
+    return cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(num_scan_lines=16, max_points=16384, min_range=1.0,
+                                 max_range=40.0, sort_by_time=False),
+        map=cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 13,
+                             neighborhood=8, nn_points=2, grid_z=32, store_points=False),
+        icp=cfgmod.IcpConfig(max_map_points=2048, max_source_points=512,
+                             gn_backend="pallas"),
+    )
+
+
+def _gn_streams(dev, mcfg, icp, n_streams, n_world, extent, rng):
+    """K4 / K5 inputs at a deployment's shape: per-stream seeded maps, each
+    stream's source shifted by its own offset (0.02 to 0.45 m), so the
+    streams converge after different iteration counts."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+
+    lo, hi = np.array([-extent, -extent, -2.0]), np.array([extent, extent, 10.0])
+    pts = rng.uniform(lo, hi, (n_streams, n_world, 3)).astype(np.float32)
+    world = torch.from_numpy(pts).to(dev)
+    ones = torch.ones(n_streams, n_world, dtype=torch.bool, device=dev)
+    g = voxel_map.fused_downsample(world, ones, mcfg.voxel_size, icp.max_map_points)
+    m = voxel_map.insert_grouped(voxel_map.create(mcfg, dev, streams=n_streams), g, mcfg)
+    n = icp.max_source_points
+    scale = np.linspace(0.02, 0.45, n_streams)[:, None, None]
+    shift = (rng.uniform(-1, 1, (n_streams, 1, 3)) * scale).astype(np.float32)
+    src = g.points[:, :n] - torch.from_numpy(shift).to(dev)
+    mask = g.mask[:, :n]
+    nq = torch.clamp(mask.sum(-1, keepdim=True), min=1).float()
+    anchor = torch.where(mask[..., None], src, torch.zeros_like(src)).sum(1) / nq
+    q = (src - anchor[:, None]).transpose(1, 2).contiguous()
+    cand = voxel_map.gather_candidate_planes_packed(m, src, mask, mcfg, anchor).contiguous()
+    kth = torch.from_numpy(rng.uniform(0.2, 0.8, n_streams)).to(dev)
+    scal = torch.stack([kth, torch.full_like(kth, 1.5**2)] + [
+        torch.full_like(kth, v) for v in (icp.estimation_threshold, 20.0, 2.0,
+                                          (0.5 * mcfg.voxel_size) ** 2, 0.0, 0.0)], dim=-1)
+    return q, mask.float().contiguous(), cand, scal.contiguous()
+
+
+def _rows_err(rows, ref, what):
+    """Per-stream bars of a K4 / K5 result against its plain version."""
+    a = rows.cpu().numpy().reshape(-1, 16)
+    b = ref.cpu().numpy().reshape(-1, 16)
+    err_R = float(np.abs(a[:, :9] - b[:, :9]).max())
+    err_t = float(np.abs(a[:, 9:12] - b[:, 9:12]).max())
+    iters = sorted(set(b[:, 14].astype(int).tolist()))
+    print(f"{what}: max|dR| {err_R:.3e} (tol 1e-5)  max|dt| {err_t:.3e} m (tol 1e-4)  "
+          f"iteration counts {iters}  max|d n_corr| {np.abs(a[:, 12] - b[:, 12]).max():.0f}")
+    _require(err_R <= 1e-5 and err_t <= 1e-4, f"{what}: pose disagrees with its plain version")
+    _require((a[:, 14:16] == b[:, 14:16]).all(), f"{what}: iterations/flags disagree")
+    _require(np.abs(a[:, 12] - b[:, 12]).max() <= 1, f"{what}: n_corr disagrees")
+    return max(err_R, err_t), iters
+
+
+def batched_kernel_phase(dev, cfg, cfgmod):
+    """K4 and K5 against their plain versions at the batched paths' shapes."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+
+    rng = np.random.default_rng(1)
+    inner = 4  # batch_config's inner unroll
+    hdl = _gn_streams(dev, cfg.map, cfg.icp, STREAMS, POINTS_PER_SCAN, 60.0, rng)
+    _require(tuple(hdl[2].shape) == (STREAMS, 3, 80, 4096), f"K5 candidates {hdl[2].shape}")
+    mcc = mc_cfg(cfgmod)
+    mc = _gn_streams(dev, mcc.map, mcc.icp, MC_STREAMS, 16384, 30.0, rng)
+    _require(tuple(mc[2].shape) == (MC_STREAMS, 3, 16, 512), f"K5 MC candidates {mc[2].shape}")
+
+    one = tuple(t[0].contiguous() for t in hdl)
+    err4, _ = _rows_err(icp_gn.fused_gn(*one, inner), icp_gn.fused_gn_ref(*one, inner),
+                        "K4 fused_gn (1 x 4096 x 80)")
+    ms4 = _cuda_ms(lambda: icp_gn.fused_gn(*one, inner), 50)
+    plain4 = _cuda_ms(lambda: icp_gn.fused_gn_ref(*one, inner), 5)
+    print(f"K4 {ms4:.4f} ms/launch  plain {plain4:.4f} ms/call")
+
+    errs, times = [], {}
+    for name, args in (("8 x 4096 x 80", hdl), ("256 x 512 x 16", mc)):
+        err, iters = _rows_err(icp_gn.fused_gn_batched(*args, inner),
+                               icp_gn.fused_gn_batched_ref(*args, inner),
+                               f"K5 fused_gn_batched ({name})")
+        _require(len(iters) > 1, f"K5 ({name}): every stream stopped at one count")
+        errs.append(err)
+        times[name] = (_cuda_ms(lambda: icp_gn.fused_gn_batched(*args, inner), 50),
+                       _cuda_ms(lambda: icp_gn.fused_gn_batched_ref(*args, inner), 5))
+        print(f"K5 ({name}) {times[name][0]:.4f} ms/launch  plain {times[name][1]:.4f} ms/call")
+    src = "lidar_imu_slam_tpu_torch/csrc/icp_gn.cu"
+    return [
+        dict(name="fused_gn", route="cuda", source=src,
+             replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:281",
+             max_abs_err=err4, ms=ms4, plain_ms=plain4),
+        dict(name="fused_gn_batched", route="cuda", source=src,
+             replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:415",
+             max_abs_err=max(errs), ms=times["8 x 4096 x 80"][0],
+             plain_ms=times["8 x 4096 x 80"][1],
+             ms_256x512x16=times["256 x 512 x 16"][0],
+             plain_ms_256x512x16=times["256 x 512 x 16"][1]),
+    ]
+
+
+def _no_sync(fn):
+    """Run fn with every host-device synchronization raising."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def small_batched_phase(dev):
+    """3 streams x 5 small scans under batch_config on the card and the
+    CPU; then one stream through register_frame under batch_config (K4)."""
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import (RawScan, pack_raw_scan,
+                                                         preprocess_scan, stack_raw_scans)
+    from lidar_imu_slam_tpu_torch.parallel import streams
+
+    cfg = streams.batch_config(cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
+                                 sort_by_time=False, time_source="per_point"),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
+                             neighborhood=8, store_points=False, max_insert_voxels=700),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
+                             max_iterations=20, gn_backend="pallas", deskew=True),
+    ))
+    world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
+    gt = synthetic.make_trajectory(n_poses=8, speed=2.0, yaw_rate=0.03, dt=0.1)
+    raws = []
+    for i in range(7):
+        pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5,
+                                                 30.0, noise=0.01, seed=i)
+        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048))
+
+    def on(d, raw):
+        return RawScan(*(t.to(d) for t in raw))
+
+    states = {d: streams.init_batched_state(cfg, 3, d) for d in (dev, "cpu")}
+    worst = 0.0
+    for i in range(5):
+        poses = {}
+        for d in (dev, "cpu"):
+            scans = preprocess_scan(on(d, stack_raw_scans(raws[i:i + 3])), cfg.lidar)
+            states[d], out = streams.batched_register_frame_step(states[d], scans, cfg)
+            poses[d] = out.pose.cpu().numpy()
+        worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
+    print(f"small batched drive (3 streams): card vs CPU max|d pose| {worst:.3e} (tol 1e-4)")
+    _require(worst <= 1e-4, "small batched drive: card and CPU poses disagree")
+
+    single = {d: kiss_icp.init_state(cfg, d) for d in (dev, "cpu")}
+    worst = 0.0
+    _common.reset_launches()
+    for i in range(5):
+        poses = {}
+        for d in (dev, "cpu"):
+            scan = preprocess_scan(on(d, raws[i]), cfg.lidar)
+            single[d], out = kiss_icp.register_frame_step(single[d], scan, cfg)
+            poses[d] = out.pose.cpu().numpy()
+        worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
+    launches = dict(_common.LAUNCHES)
+    print(f"single stream under batch_config: card vs CPU max|d pose| {worst:.3e} (tol 1e-4)  "
+          f"launches {launches}")
+    _require(worst <= 1e-4, "single-stream batch_config drive: card and CPU poses disagree")
+    expect_k4 = 5 * cfg.icp.batch_unroll_outer
+    _require(launches["fused_gn"] == expect_k4, f"K4 launched {launches['fused_gn']} "
+             f"times, not {expect_k4}")
+    return launches
+
+
+def multi_stream_phase(dev, cfg, raws, gt):
+    """bench.py:_bench_batched_chained on the card: 8 HDL-64E streams x 60
+    scans, staggered by one scan per stream."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan, stack_raw_scans
+    from lidar_imu_slam_tpu_torch.parallel import streams
+
+    bcfg = streams.batch_config(cfg)
+    last = STREAM_SCANS - 1
+
+    def step(states, i):
+        batch = stack_raw_scans([raws[min(i + s, last)] for s in range(STREAMS)])
+        return streams.batched_register_frame_step(
+            states, preprocess_scan(batch, bcfg.lidar), bcfg)
+
+    warm = streams.init_batched_state(bcfg, STREAMS, dev)
+    warm, _ = step(warm, 0)
+    _no_sync(lambda: step(warm, 1))
+    print("multi-stream: one batched step ran under sync debug mode 'error'")
+    del warm
+
+    states = streams.init_batched_state(bcfg, STREAMS, dev)
+    _common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses = []
+    for i in range(STREAM_SCANS):
+        states, out = step(states, i)
+        poses.append(out.pose)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_common.LAUNCHES)
+    poses = torch.stack(poses).cpu().numpy()  # (steps, S, 4, 4)
+    _require(np.isfinite(poses).all(), "multi-stream: non-finite pose")
+    ates = [_ate(poses[:STREAM_SCANS - s, s], gt[s:]) for s in range(STREAMS)]
+    print(f"multi-stream: {STREAMS} streams x {STREAM_SCANS} scans, "
+          f"{STREAMS * STREAM_SCANS / wall:.2f} scans/s aggregate "
+          f"({wall / STREAM_SCANS * 1000.0:.2f} ms per batched step)")
+    print("multi-stream: ATE per stream (m, mid-scan) " + " ".join(f"{a:.4f}" for a in ates))
+    print(f"multi-stream: launches {launches}  map voxels "
+          f"{voxel_map.num_voxels(states.map).cpu().tolist()}  "
+          f"drops {states.map.drops.cpu().tolist()}")
+    _require(ates[0] <= ATE_LIMIT_M, f"multi-stream: stream 0 ATE {ates[0]:.4f} m above "
+             f"{ATE_LIMIT_M}")
+    expect = STREAM_SCANS * bcfg.icp.batch_unroll_outer
+    _require(launches["fused_gn_batched"] == expect,
+             f"multi-stream: K5 launched {launches['fused_gn_batched']} times, not {expect}")
+    for k in ("fused_gn_carry", "pose_pre", "pose_post", "fused_gn"):
+        _require(launches[k] == 0, f"multi-stream: {k} launched on the batched path")
+    return launches
+
+
+def monte_carlo_phase(dev, cfgmod):
+    """bench.py:_bench_monte_carlo on the card: 256 perturbed VLP-16
+    streams, 2 warm + 20 timed steps, tracking within 0.5 m."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan, preprocess_scan
+    from lidar_imu_slam_tpu_torch.parallel import streams
+
+    cfg = mc_cfg(cfgmod)
+    bcfg = streams.batch_config(cfg)
+    world = synthetic.make_world(seed=1, n_points=200_000, extent=(60.0, 20.0, 8.0))
+    gt = synthetic.make_trajectory(n_poses=MC_STEPS + 2, speed=2.0, yaw_rate=0.01, dt=0.1)
+    raws = [pack_raw_scan(synthetic.render_scan(world, pose, 16384, 1.0, 40.0, noise=0.02,
+                                                seed=i),
+                          stamp=i * 0.1, max_points=16384, device=dev)
+            for i, pose in enumerate(gt)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step(states, i):
+        ens = streams.perturb_scans(preprocess_scan(raws[i], cfg.lidar), gen, MC_STREAMS, 0.01)
+        return streams.batched_register_frame_step(states, ens, bcfg)
+
+    states = streams.init_batched_state(bcfg, MC_STREAMS, dev)
+    _common.reset_launches()
+    states, _ = step(states, 0)
+    states, out = _no_sync(lambda: step(states, 1))
+    print("monte-carlo: one batched step ran under sync debug mode 'error'")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, MC_STEPS + 2):
+        states, out = step(states, i)
+    final = out.pose.cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = dict(_common.LAUNCHES)
+    gt_rel = np.linalg.inv(gt[0]) @ gt[MC_STEPS + 1]
+    err = np.linalg.norm(final[:, :3, 3] - gt_rel[:3, 3], axis=-1)
+    tracking = float(np.mean(err < 0.5))
+    print(f"monte-carlo: {MC_STREAMS} streams x {MC_STEPS} steps, "
+          f"{MC_STREAMS * MC_STEPS / wall:.2f} scans/s aggregate  tracking_frac {tracking} "
+          f"(max err {err.max():.4f} m, mean {err.mean():.4f} m)  launches {launches}")
+    _require(np.isfinite(final).all(), "monte-carlo: non-finite pose")
+    _require(tracking == 1.0, f"monte-carlo: tracking_frac {tracking} below 1.0")
+    _require(launches["fused_gn_batched"] == (MC_STEPS + 2) * bcfg.icp.batch_unroll_outer,
+             "monte-carlo: K5 not launched once per ICP round")
     return launches
 
 
@@ -349,11 +659,18 @@ def main() -> int:
                 print("  ptxas:", line.strip())
 
     cfg = bench_cfg(cfgmod, POINTS_PER_SCAN)
-    kernels = kernel_phase(dev, cfg)
+    kernels = kernel_phase(dev, cfg) + batched_kernel_phase(dev, cfg, cfgmod)
     small_drive_phase(dev)
-    launches = slice_phase(dev, cfg)
+    raws, gt = render_hdl_drive(dev)
+    launches = slice_phase(dev, cfg, raws, gt)
+    # each kernel's launches come from the drive of its own path
+    launches["fused_gn"] = small_batched_phase(dev)["fused_gn"]
+    launches["fused_gn_batched"] = multi_stream_phase(dev, cfg, raws, gt)["fused_gn_batched"]
+    del raws
+    monte_carlo_phase(dev, cfgmod)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        _require(k["launches"] > 0, f"kernel {k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,17 @@
-// Fused robust Gauss-Newton ICP round: kernel K1 (fused_gn_carry).
+// Fused robust Gauss-Newton ICP rounds: kernels K1 (fused_gn_carry), K4
+// (fused_gn) and K5 (fused_gn_batched).
 //
 // Replaces: the JAX package's ops/pallas/icp_gn.py:fused_gn_carry (body
-// _kernel_carry over _gn_iterations(track_m=True)).
+// _kernel_carry over _gn_iterations(track_m=True)), fused_gn (body _kernel)
+// and fused_gn_batched (body _kernel_batched, gridded over streams).
 //
 // One launch runs n_inner point-to-point GN iterations against a fixed
-// candidate set, then de-centres the accumulated correction by the anchor
-// and composes it with the carried world pose — the TPU kernel's
-// one-dispatch-per-ICP-round contract. Per iteration:
+// candidate set — the TPU kernels' one-dispatch-per-ICP-round contract.
+// K1 then de-centres the accumulated correction by the anchor and composes
+// it with the carried world pose. K4 and K5 share K1's block loop
+// (gn_iterations) and write the centred correction: K5 runs one block per
+// stream, each with its own scalars; K4 is its launch with one stream.
+// Per iteration:
 //   * every query transformed by the current correction (f32),
 //   * nearest of its NC candidate slots (f32 running min; +inf = empty),
 //   * gate d^2 < max_d2, Geman-McClure weight kth^2 / (kth + r^2)^2,
@@ -25,12 +30,20 @@
 // using a hundredth of the card. Spreading queries over many blocks with a
 // second reduction pass (or a cluster reduction) is later work.
 //
+// K4 / K5 at their deployment shapes: 8 streams x 4096 queries x 80 slots
+// (8 blocks, each K1's work) and 256 streams x 512 queries x 16 slots (256
+// blocks of one query per thread: the card is filled, and each block's
+// candidates, 98 KB, stay in L1/L2 across iterations).
+//
 // Layout: q (3, N) f32 centred queries; qmask (N,) f32; cand (3, NC, N) f32
 // centred candidates (neighbouring threads read neighbouring queries of
 // one slot: coalesced); scal (8,) f64 [kernel_th, max_d2, est_th,
 // min_corr, max_step, stale_d2, -, -]; carry (15,) f64 [R 9 | t 3 |
 // anchor 3]. Output (16,) f64: [R 9 | t 3 | n_corr | rms | iters | flags],
 // flags = converged + 2 * stale, (R, t) = T_delta @ T_carry in the world.
+// K5 takes the same per stream with a leading S (q (S, 3, N), qmask (S, N),
+// cand (S, 3, NC, N), scal (S, 8)) and writes (S, 16) rows whose (R, t)
+// is the centred correction itself.
 //
 // Built without fast math: +inf candidates, exact sqrt / sin / cos.
 
@@ -151,14 +164,23 @@ __device__ void gn_update(const double* S, GnState& g, double min_corr,
   if (g.conv < 0.5 && drift2 > stale_d2) g.stale = 1.0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_gn_carry_kernel(const float* __restrict__ q, const float* __restrict__ qmask,
-                      const float* __restrict__ cand, const double* __restrict__ scal,
-                      const double* __restrict__ carry, int n, int nc, int n_inner,
-                      double* __restrict__ out) {
-  __shared__ double part[kWarps][kSums];
-  __shared__ double tot[kSums];
-  __shared__ GnState g;
+// Per-block workspace of the GN loop.
+struct GnShared {
+  double part[kWarps][kSums];
+  double tot[kSums];
+  GnState g;
+};
+
+// n_inner robust GN iterations of one block over its queries (see the
+// header comment); leaves the centred correction and the counters in sh.g.
+// Shared by K1 (one block, carry epilogue) and K4 / K5 (one block per
+// stream, centred output).
+__device__ __forceinline__ void gn_iterations(const float* __restrict__ q,
+                                              const float* __restrict__ qmask,
+                                              const float* __restrict__ cand,
+                                              const double* __restrict__ scal, int n,
+                                              int nc, int n_inner, GnShared& sh) {
+  GnState& g = sh.g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float kth = static_cast<float>(scal[0]);
   const float maxd2 = static_cast<float>(scal[1]);
@@ -223,20 +245,31 @@ fused_gn_carry_kernel(const float* __restrict__ q, const float* __restrict__ qma
 #pragma unroll
     for (int k = 0; k < kSums; ++k) {
       const double v = warp_sum(acc[k]);
-      if (lane == 0) part[warp][k] = v;
+      if (lane == 0) sh.part[warp][k] = v;
     }
     __syncthreads();
     if (warp == 0) {
       for (int k = 0; k < kSums; ++k) {
-        const double v = warp_sum(lane < kWarps ? part[lane][k] : 0.0);
-        if (lane == 0) tot[k] = v;
+        const double v = warp_sum(lane < kWarps ? sh.part[lane][k] : 0.0);
+        if (lane == 0) sh.tot[k] = v;
       }
     }
     __syncthreads();
     if (tid == 0)
-      gn_update(tot, g, scal[3], scal[4], scal[2], scal[5]);
+      gn_update(sh.tot, g, scal[3], scal[4], scal[2], scal[5]);
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_gn_carry_kernel(const float* __restrict__ q, const float* __restrict__ qmask,
+                      const float* __restrict__ cand, const double* __restrict__ scal,
+                      const double* __restrict__ carry, int n, int nc, int n_inner,
+                      double* __restrict__ out) {
+  __shared__ GnShared sh;
+  const GnState& g = sh.g;
+  const int tid = threadIdx.x;
+  gn_iterations(q, qmask, cand, scal, n, nc, n_inner, sh);
 
   if (tid == 0) {
     // de-centre: T_world = Trans(a) T_centred Trans(-a), so
@@ -260,7 +293,40 @@ fused_gn_carry_kernel(const float* __restrict__ q, const float* __restrict__ qma
   }
 }
 
+// K4 / K5: one block per stream (blockIdx.x = s), each running the GN loop
+// on its own queries, candidates and scalars; the centred correction is
+// written out as is (the caller de-centres and composes in f64).
+__global__ void __launch_bounds__(kThreads)
+fused_gn_batched_kernel(const float* __restrict__ q, const float* __restrict__ qmask,
+                        const float* __restrict__ cand, const double* __restrict__ scal,
+                        int n, int nc, int n_inner, double* __restrict__ out) {
+  __shared__ GnShared sh;
+  const GnState& g = sh.g;
+  const size_t s = blockIdx.x;
+  gn_iterations(q + s * 3 * (size_t)n, qmask + s * (size_t)n,
+                cand + s * 3 * (size_t)nc * n, scal + s * 8, n, nc, n_inner, sh);
+  if (threadIdx.x == 0) {
+    double* o = out + s * 16;
+    for (int i = 0; i < 9; ++i) o[i] = g.R[i];
+    for (int i = 0; i < 3; ++i) o[9 + i] = g.t[i];
+    o[12] = g.ncorr;
+    o[13] = g.rms;
+    o[14] = g.iters;
+    o[15] = g.conv + 2.0 * g.stale;
+  }
+}
+
 }  // namespace
+
+extern "C" int lis_fused_gn_batched(void* q, void* qmask, void* cand, void* scal,
+                                    int n, int nc, int n_inner, int streams,
+                                    void* out, void* stream) {
+  fused_gn_batched_kernel<<<streams, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(qmask),
+      static_cast<const float*>(cand), static_cast<const double*>(scal), n, nc,
+      n_inner, static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int lis_fused_gn_carry(void* q, void* qmask, void* cand, void* scal,
                                   void* carry, int n, int nc, int n_inner,

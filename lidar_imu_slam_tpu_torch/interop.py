@@ -5,6 +5,9 @@ The odometry state is the system's "weights": a JAX `KissState` (with its
 arrays, becomes the port's `KissState` on a device, and back. This module
 takes and returns numpy only; it reads fields by name, so any object with
 the JAX field names works (a NamedTuple of numpy arrays, for example).
+
+Batched states (`parallel.streams`) carry a leading stream axis S on every
+leaf, as the JAX package's `init_batched_state` makes them.
 """
 
 from __future__ import annotations
@@ -18,7 +21,12 @@ from .ops.voxel_map import VoxelMap
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """A copy of `a` on `device`, as the front view of a flat buffer with
+    one spare element (the layout the map's in-place scatters reuse)."""
+    t = torch.from_numpy(np.array(a, copy=True).reshape(-1))
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    buf[:-1].copy_(t)
+    return buf[:-1].view(np.shape(a))
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
@@ -51,3 +59,26 @@ def kiss_state_to_numpy(state: KissState) -> KissState:
         num_poses=_n(state.num_poses),
         threshold=ThresholdState(*(_n(t) for t in state.threshold)),
     )
+
+
+def _stream_count(tree) -> int:
+    leaves = [getattr(tree.map, f) for f in VoxelMap._fields]
+    leaves += [getattr(tree, f) for f in ("pose", "pose_prev", "first_pose", "num_poses")]
+    s = {tuple(x.shape)[:1] for x in leaves}
+    if len(s) != 1 or len(tree.num_poses.shape) != 1:
+        raise ValueError(f"a batched state needs one leading stream axis on every leaf, "
+                         f"got leading sizes {sorted(s)}")
+    return s.pop()[0]
+
+
+def batched_kiss_state_from_numpy(tree, device: torch.device | str = "cpu") -> KissState:
+    """Port state from the numpy leaves of a JAX batched KissState (a
+    leading stream axis S on every leaf, as `init_batched_state` makes)."""
+    _stream_count(tree)
+    return kiss_state_from_numpy(tree, device)
+
+
+def batched_kiss_state_to_numpy(state: KissState) -> KissState:
+    """The port's batched state with numpy leaves in the JAX field order."""
+    _stream_count(state)
+    return kiss_state_to_numpy(state)

@@ -1,14 +1,17 @@
-"""Fused Gauss-Newton ICP round, kernel K1 (`fused_gn_carry`).
+"""Fused Gauss-Newton ICP rounds: kernels K1 (`fused_gn_carry`), K4
+(`fused_gn`) and K5 (`fused_gn_batched`).
 
-Counterpart of the JAX package's `ops/pallas/icp_gn.py:fused_gn_carry`.
-One call runs `n_inner` robust point-to-point GN iterations of the
-centred queries against their candidate slots, then de-centres the
-correction and composes it with the carried world pose. Precision: the
-per-query work (transform, nearest candidate, residual, weight) is f32;
-the weighted sums, the 6x6 solve and the pose are f64 — the TPU kernel
-carried everything in f32 plus float-float translations.
+Counterparts of the JAX package's `ops/pallas/icp_gn.py` functions of the
+same names. One call runs `n_inner` robust point-to-point GN iterations of
+the centred queries against their candidate slots. K1 then de-centres the
+correction and composes it with the carried world pose; K4 returns the
+centred correction; K5 is K4 over a leading stream axis, each stream with
+its own scalars. Precision: the per-query work (transform, nearest
+candidate, residual, weight) is f32; the weighted sums, the 6x6 solve and
+the pose are f64 — the TPU kernels carried everything in f32 (K1 plus
+float-float translations).
 
-Layouts:
+Layouts (K1 and K4; K5 adds a leading S to q, qmask, cand and scal):
   q      (3, N) f32       queries centred on the anchor
   qmask  (N,) f32         1.0 = valid query
   cand   (3, NC, N) f32   candidates centred on the anchor, +inf = empty
@@ -17,7 +20,8 @@ Layouts:
   carry  (15,) f64        [R 9 | t 3 | anchor 3]: carried world pose and
                            this round's centring anchor
 Returns (16,) f64: [R 9 | t 3 | n_corr | rms | iters | flags] with
-(R, t) = T_delta @ T_carry and flags = converged + 2 * stale.
+flags = converged + 2 * stale and (R, t) = T_delta @ T_carry (K1) or the
+centred correction T_delta itself (K4; K5 returns (S, 16)).
 """
 
 from __future__ import annotations
@@ -33,30 +37,45 @@ OUT_WIDTH = 16
 F32 = torch.float32
 F64 = torch.float64
 
-_fn = None
+_fn = None  # K1
+_fn_batched = None  # K4 / K5
+
+
+def _bind(name: str, n_ptr_in: int, n_int: int):
+    """A launcher of the library: n_ptr_in pointers, n_int ints, then the
+    output pointer and the stream."""
+    fn = getattr(_build.load(), name)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * n_ptr_in + [i] * n_int + [vp, vp]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        fn = _build.load().lis_fused_gn_carry
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, vp]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = _bind("lis_fused_gn_carry", 5, 3)
     return _fn
 
 
+def _kernel_batched():
+    global _fn_batched
+    if _fn_batched is None:
+        _fn_batched = _bind("lis_fused_gn_batched", 4, 4)
+    return _fn_batched
+
+
 def _gn_update(S, R, t, conv, stale, ncorr_o, rms_o, iters, scal):
-    """One GN update from the 18 reduced f64 sums (0-d tensors throughout,
-    no host sync). Mirrors the kernel's thread-0 solve."""
-    est_th, min_corr, max_step, stale_d2 = scal[2], scal[3], scal[4], scal[5]
+    """One GN update from the 18 reduced f64 sums S (..., 18), for any
+    leading stream dims (0-d per-stream state, no host sync). Mirrors the
+    kernel's thread-0 solve."""
+    est_th, min_corr, max_step, stale_d2 = (scal[..., i] for i in (2, 3, 4, 5))
     active = (conv < 0.5) & (stale < 0.5)
-    sw, Sx, Sy, Sz = S[0], S[1], S[2], S[3]
-    sxx, syy, szz, sxy, sxz, syz = S[4], S[5], S[6], S[7], S[8], S[9]
-    g = S[10:16]
-    ncorr = S[16]
-    rms = torch.sqrt(S[17] / torch.clamp(ncorr, min=1.0))
+    sw, Sx, Sy, Sz = S[..., 0], S[..., 1], S[..., 2], S[..., 3]
+    sxx, syy, szz, sxy, sxz, syz = (S[..., i] for i in range(4, 10))
+    g = [S[..., i] for i in range(10, 16)]
+    ncorr = S[..., 16]
+    rms = torch.sqrt(S[..., 17] / torch.clamp(ncorr, min=1.0))
 
     s2 = (sxx + syy + szz) / torch.clamp(sw, min=1e-20)
     i_s = torch.rsqrt(torch.clamp(s2, min=1e-12))
@@ -97,17 +116,17 @@ def _gn_update(S, R, t, conv, stale, ncorr_o, rms_o, iters, scal):
         for k in range(i + 1, 6):
             acc = acc - L[k][i] * xi[k]
         xi[i] = acc / L[i][i]
-    v = torch.stack(xi[:3])
-    o = torch.stack(xi[3:]) * i_s
+    v = torch.stack(xi[:3], dim=-1)
+    o = torch.stack(xi[3:], dim=-1) * i_s[..., None]
 
     ok = ncorr >= min_corr
-    step = torch.sqrt(torch.sum(v * v) + torch.sum(o * o))
+    step = torch.sqrt(torch.sum(v * v, dim=-1) + torch.sum(o * o, dim=-1))
     clamp = torch.where(step > max_step, max_step / torch.clamp(step, min=1e-20),
                         torch.ones_like(step))
-    scale = torch.where(active & ok, clamp, torch.zeros_like(clamp))
+    scale = torch.where(active & ok, clamp, torch.zeros_like(clamp))[..., None]
     v = v * scale
     o = o * scale
-    ox, oy, oz = o[0], o[1], o[2]
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
 
     sq = ox * ox + oy * oy + oz * oz
     th = torch.sqrt(torch.clamp(sq, min=1e-30))
@@ -118,52 +137,60 @@ def _gn_update(S, R, t, conv, stale, ncorr_o, rms_o, iters, scal):
     c3 = torch.where(small, torch.full_like(sq, 1.0 / 6.0), (1.0 - a) / safe_sq)
 
     def rot_like(p, q):
-        # I + p W + q W^2 with W^2 = o o^T - |o|^2 I
+        # I + p W + q W^2 with W^2 = o o^T - |o|^2 I, shape (..., 3, 3)
         return torch.stack([
-            torch.stack([1.0 + q * (ox * ox - sq), p * -oz + q * ox * oy, p * oy + q * ox * oz]),
-            torch.stack([p * oz + q * ox * oy, 1.0 + q * (oy * oy - sq), p * -ox + q * oy * oz]),
-            torch.stack([p * -oy + q * ox * oz, p * ox + q * oy * oz, 1.0 + q * (oz * oz - sq)]),
-        ])
+            torch.stack([1.0 + q * (ox * ox - sq), p * -oz + q * ox * oy,
+                         p * oy + q * ox * oz], dim=-1),
+            torch.stack([p * oz + q * ox * oy, 1.0 + q * (oy * oy - sq),
+                         p * -ox + q * oy * oz], dim=-1),
+            torch.stack([p * -oy + q * ox * oz, p * ox + q * oy * oz,
+                         1.0 + q * (oz * oz - sq)], dim=-1),
+        ], dim=-2)
 
     E = rot_like(a, b2)
     V = rot_like(b2, c3)
     R_new = E @ R
-    t_new = E @ t + V @ v
+    t_new = (E @ t[..., None] + V @ v[..., None])[..., 0]
 
     one = torch.ones_like(conv)
     ncorr_o = torch.where(active, ncorr, ncorr_o)
     rms_o = torch.where(active, rms, rms_o)
     iters = iters + active.to(F64)
     conv = torch.where(active & (~ok | (torch.clamp(step, max=max_step) < est_th)), one, conv)
-    drift2 = torch.sum(t_new * t_new)
+    drift2 = torch.sum(t_new * t_new, dim=-1)
     stale = torch.where((conv < 0.5) & (drift2 > stale_d2), one, stale)
     return R_new, t_new, conv, stale, ncorr_o, rms_o, iters
 
 
-def fused_gn_carry_ref(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel K1, same iteration semantics (a
-    frozen iteration is an exact identity update, as the kernel's early
-    exit)."""
+def _gn_iterations_ref(q, qmask, cand, scal, n_inner: int):
+    """The kernels' shared loop in plain PyTorch, for any leading stream
+    dims: q (..., 3, N), qmask (..., N), cand (..., 3, NC, N), scal (..., 8).
+    A frozen iteration is an exact identity update, as the kernel's early
+    exit. Returns (R (..., 3, 3), t (..., 3), conv, stale, n_corr, rms,
+    iters), the last five (...) f64."""
     dev = q.device
-    kth = scal[0].to(F32)
-    maxd2 = scal[1].to(F32)
-    qx, qy, qz = q[0], q[1], q[2]
+    batch = q.shape[:-2]
+    kth = scal[..., 0].to(F32)[..., None]
+    maxd2 = scal[..., 1].to(F32)[..., None]
+    qx, qy, qz = q[..., 0, :], q[..., 1, :], q[..., 2, :]
+    cx, cy, cz = cand[..., 0, :, :], cand[..., 1, :, :], cand[..., 2, :, :]
     valid_q = qmask > 0.5
-    R = torch.eye(3, dtype=F64, device=dev)
-    t = torch.zeros(3, dtype=F64, device=dev)
-    zero = torch.zeros((), dtype=F64, device=dev)
+    R = torch.eye(3, dtype=F64, device=dev).expand(batch + (3, 3))
+    t = torch.zeros(batch + (3,), dtype=F64, device=dev)
+    zero = torch.zeros(batch, dtype=F64, device=dev)
     conv, stale, ncorr_o, rms_o, iters = zero, zero, zero, zero, zero
     for _ in range(n_inner):
-        Rf, tf = R.to(F32), t.to(F32)
-        wx = Rf[0, 0] * qx + Rf[0, 1] * qy + Rf[0, 2] * qz + tf[0]
-        wy = Rf[1, 0] * qx + Rf[1, 1] * qy + Rf[1, 2] * qz + tf[1]
-        wz = Rf[2, 0] * qx + Rf[2, 1] * qy + Rf[2, 2] * qz + tf[2]
-        d2 = (cand[0] - wx) ** 2 + (cand[1] - wy) ** 2 + (cand[2] - wz) ** 2  # (NC, N)
-        best, arg = torch.min(d2, dim=0)
-        pick = arg[None]
-        bx = torch.gather(cand[0], 0, pick)[0]
-        by = torch.gather(cand[1], 0, pick)[0]
-        bz = torch.gather(cand[2], 0, pick)[0]
+        Rf, tf = R.to(F32)[..., None], t.to(F32)[..., None]
+        wx = Rf[..., 0, 0, :] * qx + Rf[..., 0, 1, :] * qy + Rf[..., 0, 2, :] * qz + tf[..., 0, :]
+        wy = Rf[..., 1, 0, :] * qx + Rf[..., 1, 1, :] * qy + Rf[..., 1, 2, :] * qz + tf[..., 1, :]
+        wz = Rf[..., 2, 0, :] * qx + Rf[..., 2, 1, :] * qy + Rf[..., 2, 2, :] * qz + tf[..., 2, :]
+        d2 = ((cx - wx[..., None, :]) ** 2 + (cy - wy[..., None, :]) ** 2
+              + (cz - wz[..., None, :]) ** 2)  # (..., NC, N)
+        best, arg = torch.min(d2, dim=-2)
+        pick = arg[..., None, :]
+        bx = torch.gather(cx, -2, pick)[..., 0, :]
+        by = torch.gather(cy, -2, pick)[..., 0, :]
+        bz = torch.gather(cz, -2, pick)[..., 0, :]
         corr = valid_q & (best < maxd2)
         f0 = torch.zeros_like(wx)
         rx = torch.where(corr, wx - bx, f0)
@@ -176,22 +203,36 @@ def fused_gn_carry_ref(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tenso
         rx, ry, rz = rx.to(F64), ry.to(F64), rz.to(F64)
         wsx, wsy, wsz = w * sx, w * sy, w * sz
         S = torch.stack([
-            w.sum(), wsx.sum(), wsy.sum(), wsz.sum(),
-            (wsx * sx).sum(), (wsy * sy).sum(), (wsz * sz).sum(),
-            (wsx * sy).sum(), (wsx * sz).sum(), (wsy * sz).sum(),
-            (w * rx).sum(), (w * ry).sum(), (w * rz).sum(),
-            (wsy * rz - wsz * ry).sum(), (wsz * rx - wsx * rz).sum(),
-            (wsx * ry - wsy * rx).sum(),
-            corr.to(F64).sum(), torch.where(corr, best, f0).to(F64).sum(),
-        ])
+            w, wsx, wsy, wsz, wsx * sx, wsy * sy, wsz * sz, wsx * sy, wsx * sz, wsy * sz,
+            w * rx, w * ry, w * rz, wsy * rz - wsz * ry, wsz * rx - wsx * rz,
+            wsx * ry - wsy * rx, corr.to(F64), torch.where(corr, best, f0).to(F64),
+        ], dim=-1).sum(dim=-2)
         R, t, conv, stale, ncorr_o, rms_o, iters = _gn_update(
             S, R, t, conv, stale, ncorr_o, rms_o, iters, scal)
+    return R, t, conv, stale, ncorr_o, rms_o, iters
 
+
+def _row(R, t, conv, stale, ncorr, rms, iters):
+    return torch.cat([R.flatten(-2), t, torch.stack([ncorr, rms, iters, conv + 2.0 * stale],
+                                                    dim=-1)], dim=-1)
+
+
+def fused_gn_carry_ref(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel K1."""
+    R, t, conv, stale, ncorr, rms, iters = _gn_iterations_ref(q, qmask, cand, scal, n_inner)
     Rc, tc, anchor = carry[:9].reshape(3, 3), carry[9:12], carry[12:15]
-    eye = torch.eye(3, dtype=F64, device=dev)
+    eye = torch.eye(3, dtype=F64, device=q.device)
     twd = t + (eye - R) @ anchor
-    return torch.cat([(R @ Rc).reshape(9), R @ tc + twd,
-                      torch.stack([ncorr_o, rms_o, iters, conv + 2.0 * stale])])
+    return _row(R @ Rc, R @ tc + twd, conv, stale, ncorr, rms, iters)
+
+
+def fused_gn_batched_ref(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
+    """Plain PyTorch version of kernels K4 (no leading dim) and K5 (leading
+    stream axis): the centred correction rows."""
+    return _row(*_gn_iterations_ref(q, qmask, cand, scal, n_inner))
+
+
+fused_gn_ref = fused_gn_batched_ref
 
 
 def fused_gn_carry(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tensor:
@@ -215,3 +256,43 @@ def fused_gn_carry(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tensor:
     _build.check(status, "fused_gn_carry")
     LAUNCHES["fused_gn_carry"] += 1
     return out
+
+
+def _launch_batched(name, q, qmask, cand, scal, n_inner, streams, out_shape):
+    """Launch K4 / K5 (one kernel, one block per stream) or run the plain
+    version on CPU tensors."""
+    args = (q, qmask, cand, scal)
+    if on_cpu(*args):
+        return fused_gn_batched_ref(q, qmask, cand, scal, n_inner)
+    fn = _kernel_batched()
+    expect_cuda(*args)
+    out = torch.empty(out_shape, dtype=F64, device=q.device)
+    status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(),
+                q.shape[-1], cand.shape[-2], int(n_inner), streams, out.data_ptr(),
+                stream_handle(q.device))
+    _build.check(status, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_gn(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
+    """Kernel K4: `n_inner` GN iterations of one stream; returns the (16,)
+    centred-correction row. CPU tensors: the plain version."""
+    expect("q", q, F32, (3, None))
+    n = q.shape[1]
+    expect("qmask", qmask, F32, (n,))
+    expect("cand", cand, F32, (3, None, n))
+    expect("scal", scal, F64, (8,))
+    return _launch_batched("fused_gn", q, qmask, cand, scal, n_inner, 1, (OUT_WIDTH,))
+
+
+def fused_gn_batched(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
+    """Kernel K5: K4 over a leading stream axis, one thread block per
+    stream; returns (S, 16) rows. CPU tensors: the plain version."""
+    expect("q", q, F32, (None, 3, None))
+    s, n = q.shape[0], q.shape[2]
+    expect("qmask", qmask, F32, (s, n))
+    expect("cand", cand, F32, (s, 3, None, n))
+    expect("scal", scal, F64, (s, 8))
+    return _launch_batched("fused_gn_batched", q, qmask, cand, scal, n_inner, s,
+                           (s, OUT_WIDTH))

@@ -5,8 +5,9 @@ Conventions as in the JAX package:
   reference src/utils/calculation_helpers.cpp:116-119).
 * Poses are (..., 4, 4) homogeneous matrices, f64 on the ported path.
 
-Only what the lidar-only fast path (and its tests) call is ported. The
-JAX package's while-loop-free f64 helpers (`se3_exp_poly`,
+Only what the ported paths (and their tests) call is ported. Every
+function takes leading batch dims, so a leading stream axis (S, ...) of
+the batched path goes through the same code. The JAX package's while-loop-free f64 helpers (`se3_exp_poly`,
 `matmul_nowhile`, `chol_solve_unrolled`) exist to lower f64 on a TPU and
 have no counterpart: the GPU computes f64 natively, so `compose` is a
 plain matmul here.
@@ -171,6 +172,28 @@ def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit-norm-assumed quaternion (w, x, y, z) -> (..., 3, 3) rotation
+    (Eigen's toRotationMatrix formula, which does not normalize)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    one = torch.ones_like(w)
+    return torch.stack(
+        [
+            torch.stack([one - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), one - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), one - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def orthonormalize(T: torch.Tensor) -> torch.Tensor:
+    """Project the rotation block of (..., 4, 4) poses back onto SO(3) by a
+    quaternion round-trip (the classic path's renormalization, once per
+    registered scan; the fast path's pose_post kernel uses a Newton step)."""
+    return make_transform(quat_to_rot(rot_to_quat(T[..., :3, :3])), T[..., :3, 3])
+
+
 def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) @ (..., 4, 4) pose composition (native f64 matmul)."""
     return A @ B
@@ -183,9 +206,10 @@ def transform_inverse(T: torch.Tensor) -> torch.Tensor:
 
 
 def rotate_points(R: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """(3, 3) rotation applied to (..., 3) points, ELEMENTWISE in the
+    """(..., 3, 3) rotation applied to (..., 3) points, ELEMENTWISE in the
     points' dtype (9 multiply-adds per point; never a reduced-precision
-    matmul on point geometry)."""
+    matmul on point geometry). For a cloud (S, N, 3) under per-stream
+    rotations pass R[:, None] (S, 1, 3, 3)."""
     R = R.to(pts.dtype)
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     return torch.stack(

@@ -9,6 +9,10 @@ the JAX package are kept (tau spans [0, 1]; the first point is kept).
 `time_source="auto"` chooses per scan between the timestamps and the
 rotation model with `torch.where` on the device — both are computed, but
 the host never waits for the device to decide.
+
+Every field may carry leading stream dims (a stack of S raw scans, as the
+batched path feeds them): the pipeline runs along the point axis, one scan
+per row.
 """
 
 from __future__ import annotations
@@ -60,20 +64,27 @@ def rotation_model_rel_time(xyz, ring, mask, cfg: LidarConfig) -> torch.Tensor:
     """Per-point relative time (s) from the constant-rotation model
     (reference frame.cpp:159-182): the first valid point of each ring
     anchors the azimuth; time = ((yaw_fp - yaw) mod angle_limit) / rate."""
-    n = xyz.shape[0]
+    n = xyz.shape[-2]
+    lead = xyz.shape[:-2]
     lines = cfg.num_scan_lines
-    yaw = torch.rad2deg(torch.atan2(xyz[:, 1], xyz[:, 0]))
+    yaw = torch.rad2deg(torch.atan2(xyz[..., 1], xyz[..., 0]))
     idx = torch.arange(n, dtype=torch.int32, device=xyz.device)
     ring_c = torch.clamp(ring, 0, lines - 1).long()
-    first_idx = torch.full((lines,), n, dtype=torch.int32, device=xyz.device)
+    # first valid index per (scan, ring): one scatter-min over the flat
+    # (scans x rings) table
+    offs = (torch.arange(int(np.prod(lead)), device=xyz.device) * lines).reshape(lead + (1,))
+    first_idx = torch.full((int(np.prod(lead)) * lines,), n, dtype=torch.int32,
+                           device=xyz.device)
     first_idx.scatter_reduce_(
         0,
-        torch.where(mask, ring_c, torch.full_like(ring_c, lines - 1)),
-        torch.where(mask, idx, torch.full_like(idx, n)),
+        (torch.where(mask, ring_c, torch.full_like(ring_c, lines - 1)) + offs).reshape(-1),
+        torch.where(mask, idx, torch.full_like(idx, n)).reshape(-1),
         reduce="amin",
     )
-    yaw_pad = torch.cat([yaw, torch.zeros((1,), dtype=yaw.dtype, device=yaw.device)])
-    yaw_fp = yaw_pad[torch.clamp(first_idx, max=n).long()][ring_c]
+    first_idx = first_idx.reshape(lead + (lines,))
+    yaw_pad = torch.cat([yaw, torch.zeros(lead + (1,), dtype=yaw.dtype, device=yaw.device)], -1)
+    yaw_first = torch.gather(yaw_pad, -1, torch.clamp(first_idx, max=n).long())
+    yaw_fp = torch.gather(yaw_first, -1, ring_c)
     scan_ang_vel = cfg.frame_rate * 360.0 / 1000.0  # deg per ms
     diff = torch.remainder(yaw_fp - yaw, cfg.angle_limit)
     return (diff / scan_ang_vel / 1000.0).to(torch.float64)
@@ -82,38 +93,39 @@ def rotation_model_rel_time(xyz, ring, mask, cfg: LidarConfig) -> torch.Tensor:
 def preprocess_scan(raw: RawScan, cfg: LidarConfig) -> Scan:
     """Range gate, relative time, optional sort. Returns a full-scan `Scan`."""
     xyz = raw.xyz
-    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     d2 = x * x + y * y + z * z
     finite = torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z)
     gate = (d2 >= cfg.min_range**2) & (d2 <= cfg.max_range**2)
     mask = raw.mask & finite & gate
+    stamp = raw.stamp[..., None]
 
     if cfg.time_source == "per_point":
-        rel = raw.time - raw.stamp
+        rel = raw.time - stamp
     elif cfg.time_source == "rotation_model":
         rel = rotation_model_rel_time(xyz, raw.ring, mask, cfg)
     else:
-        has_time = torch.any(raw.mask & (raw.time > 0))
+        has_time = torch.any(raw.mask & (raw.time > 0), dim=-1, keepdim=True)
         rel = torch.where(
-            has_time, raw.time - raw.stamp,
+            has_time, raw.time - stamp,
             rotation_model_rel_time(xyz, raw.ring, mask, cfg),
         )
 
     # anchor at the first valid point's relative time so rel_t >= 0
     inf = torch.full_like(rel, float("inf"))
-    t0 = torch.min(torch.where(mask, rel, inf))
+    t0 = torch.amin(torch.where(mask, rel, inf), dim=-1, keepdim=True)
     t0 = torch.where(torch.isfinite(t0), t0, torch.zeros_like(t0))
     rel = rel - t0
     zero = torch.zeros_like(rel)
+    t_begin = raw.stamp + t0[..., 0]
 
     if not cfg.sort_by_time:
         rel_s = torch.where(mask, rel, zero)
-        t_span = torch.max(rel_s)
+        t_span = torch.amax(rel_s, dim=-1)
         denom = torch.where(t_span > 0, t_span, torch.ones_like(t_span))
-        t_begin = raw.stamp + t0
         return Scan(
-            xyz=torch.where(mask[:, None], xyz, torch.zeros_like(xyz)).to(torch.float32),
-            tau=(rel_s / denom).to(torch.float32),
+            xyz=torch.where(mask[..., None], xyz, torch.zeros_like(xyz)).to(torch.float32),
+            tau=(rel_s / denom[..., None]).to(torch.float32),
             rel_t=rel_s,
             mask=mask,
             t_begin=t_begin,
@@ -123,28 +135,34 @@ def preprocess_scan(raw: RawScan, cfg: LidarConfig) -> Scan:
     # time sort as ONE int64 sort: the f32 bit pattern of a non-negative
     # float is order-preserving, the index in the low bits breaks ties by
     # sensor order (same key as the JAX package, so the same order)
-    n = xyz.shape[0]
+    n = xyz.shape[-2]
     idx_bits = max(n - 1, 1).bit_length()
     t_bits = torch.clamp(rel, min=0.0).to(torch.float32).view(torch.int32).to(torch.int64)
     packed = (t_bits << idx_bits) | torch.arange(n, dtype=torch.int64, device=xyz.device)
     packed = torch.where(mask, packed, torch.full_like(packed, _I64_MAX))
-    s = torch.sort(packed).values
+    s = torch.sort(packed, dim=-1).values
     order = s & ((1 << idx_bits) - 1)
     mask_s = s < _I64_MAX
-    xyz_s = torch.where(mask_s[:, None], xyz[order], torch.zeros_like(xyz)).to(torch.float32)
+    xyz_o = torch.gather(xyz, -2, order[..., None].expand(order.shape + (3,)))
+    xyz_s = torch.where(mask_s[..., None], xyz_o, torch.zeros_like(xyz)).to(torch.float32)
     rel_s = (s >> idx_bits).to(torch.int32).view(torch.float32).to(torch.float64)
     rel_s = torch.where(mask_s, rel_s, zero)
-    t_span = torch.max(rel_s)
+    t_span = torch.amax(rel_s, dim=-1)
     denom = torch.where(t_span > 0, t_span, torch.ones_like(t_span))
-    t_begin = raw.stamp + t0
     return Scan(
         xyz=xyz_s,
-        tau=(rel_s / denom).to(torch.float32),
+        tau=(rel_s / denom[..., None]).to(torch.float32),
         rel_t=rel_s,
         mask=mask_s,
         t_begin=t_begin,
         t_end=t_begin + t_span,
     )
+
+
+def stack_raw_scans(raws) -> RawScan:
+    """Stack raw scans (each as `pack_raw_scan` gives them) on a leading
+    stream axis."""
+    return RawScan(*(torch.stack(f) for f in zip(*raws)))
 
 
 def pack_raw_scan(xyz, time=None, ring=None, stamp=0.0,

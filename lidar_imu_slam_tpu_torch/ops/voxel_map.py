@@ -30,6 +30,14 @@ Functional by default like the JAX package; with `inplace=True` the tables
 of the map passed in are updated in place (the analogue of JAX buffer
 donation) and must not be reused by the caller.
 
+Batched streams (the multi-stream / Monte-Carlo path) use the same
+functions: every table and input takes a leading stream axis (keys (S, C),
+grid (S, G), packed (S, C, Kp), scalars (S,); points (S, N, 3)). A table
+is then the front view of ONE flat (S*G + 1,) buffer, gathers and scatters
+address it with stream-offset int64 indices s*G + i (what the JAX package's
+`table_*` vmap rules do, voxel_map.py:302-465), sorts / cumsums / cummax
+run along the last axis, and no step reads the device from the host.
+
 Divisions by the voxel size are true f32 divisions by a device tensor: a
 CUDA division by a host scalar multiplies by the reciprocal, which moves
 points that lie on a voxel edge into the neighbouring voxel.
@@ -69,8 +77,9 @@ def _f32(x: float) -> float:
 
 
 def _tdiv(x: torch.Tensor, v: float) -> torch.Tensor:
-    """x / v as a true division in x's dtype (see module docstring)."""
-    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+    """x / v as a true division in x's dtype (see module docstring). The
+    divisor is filled on the device: a host-to-device copy would sync."""
+    return x / torch.full((), v, dtype=x.dtype, device=x.device)
 
 
 class VoxelMap(NamedTuple):
@@ -110,7 +119,10 @@ def _slot_bits(cfg: MapConfig) -> int:
     return max((cfg.capacity - 1).bit_length(), 1)
 
 
-def create(cfg: MapConfig, device: torch.device | str = "cpu") -> VoxelMap:
+def create(cfg: MapConfig, device: torch.device | str = "cpu",
+           streams: int | None = None) -> VoxelMap:
+    """An empty map; with `streams`, S empty maps stacked on a leading axis.
+    Every table is the front view of a flat buffer with one spare element."""
     c, k = cfg.capacity, cfg.max_points_per_voxel
     if cfg.voxel_size * (_KEY_MASK // 2 - 2) < 2.0 * cfg.max_range:
         raise ValueError(
@@ -131,10 +143,12 @@ def create(cfg: MapConfig, device: torch.device | str = "cpu") -> VoxelMap:
     if not cfg.store_points and not cfg.packed_nn:
         raise ValueError("store_points=False requires packed_nn=True")
 
-    def full(shape, fill, dtype):
-        return torch.full(shape, fill, dtype=dtype, device=device)
+    lead = () if streams is None else (streams,)
 
-    scalar = torch.zeros((), dtype=I32, device=device)
+    def full(shape, fill, dtype):
+        return _fresh(lead + shape, fill, dtype, device)
+
+    scalar = torch.zeros(lead, dtype=I32, device=device)
     return VoxelMap(
         keys=full((c,), EMPTY, I32),
         points=(full((c, k * 3), float("inf"), torch.float32) if cfg.store_points
@@ -227,16 +241,39 @@ def _pk_decode_axis(p, shift: int, kv_axis, aoff, voxel_size: float):
     return kv_axis.to(torch.float32) * _f32(voxel_size) + local + aoff
 
 
+def _stream_offsets(lead: tuple, size: int, device) -> torch.Tensor | None:
+    """Flat offsets s * size of each leading-dim row, shaped lead + (1,);
+    None without a stream axis (or with one stream: all offsets are 0)."""
+    b = int(np.prod(lead))
+    if b == 1:
+        return None
+    return (torch.arange(b, dtype=I64, device=device) * size).reshape(lead + (1,))
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[..., clip(idx), ...] along the table's axis len(lead): table
+    lead + (G,) + rest, idx lead + (M,) -> lead + (M,) + rest. Clamps like
+    the JAX package's gathers."""
+    lead = idx.shape[:-1]
+    g = table.shape[len(lead)]
+    rest = table.shape[len(lead) + 1:]
+    fi = torch.clamp(idx.to(I64), 0, g - 1)
+    offs = _stream_offsets(lead, g, idx.device)
+    if offs is not None:
+        fi = fi + offs
+    return table.reshape((-1,) + rest)[fi.reshape(-1)].reshape(idx.shape + rest)
+
+
 def _lookup(m: VoxelMap, qkeys, qvalid, cfg: MapConfig) -> torch.Tensor:
     """Grid lookup with in-cell fingerprint verification; slot or -1."""
     sb = _slot_bits(cfg)
-    cell = m.grid[grid_pos(qkeys, cfg).long()]
+    cell = _take(m.grid, grid_pos(qkeys, cfg))
     ok = qvalid & (cell >= 0) & ((cell >> sb) == _fp_of(qkeys, cfg))
     return torch.where(ok, cell & ((1 << sb) - 1), torch.full_like(cell, -1))
 
 
 def num_voxels(m: VoxelMap) -> torch.Tensor:
-    return torch.sum(m.keys >= 0).to(I32)
+    return torch.sum(m.keys >= 0, dim=-1).to(I32)
 
 
 # ---------------------------------------------------------------------------
@@ -262,11 +299,18 @@ def _spare_buffer(t: torch.Tensor, inplace: bool) -> torch.Tensor:
 def _scatter(t: torch.Tensor, flat_idx, vals, ok, inplace: bool,
              reduce: str | None = None) -> torch.Tensor:
     """t.flat[flat_idx[ok]] = vals[ok] (or amax with `reduce="amax"`);
-    not-ok entries land in the spare element and are dropped."""
+    not-ok entries land in the spare element and are dropped. With leading
+    stream dims lead = flat_idx.shape[:-1], flat_idx indexes each stream's
+    own table t[s] (flattened)."""
     n = t.numel()
+    lead = flat_idx.shape[:-1]
     b = _spare_buffer(t, inplace)
-    idx = torch.where(ok, flat_idx.to(I64), torch.full_like(flat_idx, n, dtype=I64))
-    vals = vals.to(t.dtype).expand(idx.shape)
+    idx = flat_idx.to(I64)
+    offs = _stream_offsets(lead, n // max(int(np.prod(lead)), 1), idx.device)
+    if offs is not None:
+        idx = idx + offs
+    idx = torch.where(ok, idx, torch.full_like(idx, n)).reshape(-1)
+    vals = vals.to(t.dtype).expand(flat_idx.shape).reshape(-1)
     if reduce is None:
         b.index_put_((idx,), vals)
     else:
@@ -286,12 +330,19 @@ def _fresh(shape, fill, dtype, device) -> torch.Tensor:
 
 
 def _first_valid(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first true entry (0 when none) — jnp.argmax(mask)."""
-    return torch.argmax(mask.to(torch.uint8))
+    """Index of the first true entry along the last axis (0 when none) —
+    jnp.argmax(mask)."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
 def _shift_prev(a: torch.Tensor) -> torch.Tensor:
-    return torch.cat([torch.full((1,), -9, dtype=a.dtype, device=a.device), a[:-1]])
+    head = torch.full(a.shape[:-1] + (1,), -9, dtype=a.dtype, device=a.device)
+    return torch.cat([head, a[..., :-1]], dim=-1)
+
+
+def _at_first_valid(vox: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """vox[..., argmax(mask), :] as (..., 1, 3)."""
+    return _take(vox, _first_valid(mask)[..., None])
 
 
 def first_point_per_voxel(points, mask, voxel_size: float, out_capacity: int):
@@ -299,41 +350,42 @@ def first_point_per_voxel(points, mask, voxel_size: float, out_capacity: int):
 
     One int64 sort of (15-bit/axis anchor-relative voxel | index) groups the
     points, a second payload sort compacts the winners — the same keys as
-    the JAX package, so the same order. Returns (out_points (M, 3) f32,
-    out_mask (M,), n_unique (), window_drops ())."""
-    n = points.shape[0]
+    the JAX package, so the same order. points (..., N, 3), mask (..., N).
+    Returns (out_points (..., M, 3) f32, out_mask (..., M), n_unique (...),
+    window_drops (...))."""
+    n = points.shape[-2]
+    lead = mask.shape[:-1]
     if n > (1 << _IDX_BITS):
         raise ValueError(f"{n} points exceed the packed-sort budget")
     dev = points.device
     vox = voxel_of(points, voxel_size)
     idx = torch.arange(n, dtype=I64, device=dev)
-    a = _first_valid(mask)
-    local = (vox - vox[a][None, :]).to(I64) + (1 << (_LOCAL_BITS - 1))
+    local = (vox - _at_first_valid(vox, mask)).to(I64) + (1 << (_LOCAL_BITS - 1))
     in_window = torch.all((local >= 0) & (local < (1 << _LOCAL_BITS)), dim=-1)
     valid = mask & in_window
-    window_drops = torch.sum(mask & ~in_window).to(I32)
-    key = (local[:, 0] << (2 * _LOCAL_BITS)) | (local[:, 1] << _LOCAL_BITS) | local[:, 2]
+    window_drops = torch.sum(mask & ~in_window, dim=-1).to(I32)
+    key = (local[..., 0] << (2 * _LOCAL_BITS)) | (local[..., 1] << _LOCAL_BITS) | local[..., 2]
     packed = torch.where(valid, (key << _IDX_BITS) | idx,
                          torch.full_like(key, _SENTINEL))
-    s = torch.sort(packed).values
+    s = torch.sort(packed, dim=-1).values
     order = s & ((1 << _IDX_BITS) - 1)
     group = s >> _IDX_BITS
     valid_s = s < _SENTINEL
 
     first = valid_s & (group != _shift_prev(group))
-    out_idx = torch.cumsum(first.to(I64), 0) - 1
-    n_found = torch.clamp(out_idx[-1] + 1, min=0)
+    out_idx = torch.cumsum(first.to(I64), -1) - 1
+    n_found = torch.clamp(out_idx[..., -1] + 1, min=0)
     n_unique = torch.clamp(n_found, max=out_capacity).to(I32)
 
     drop = ~(first & (out_idx < out_capacity))
     packed2 = (drop.to(I64) << 62) | (out_idx << _IDX_BITS) | order
     if n < out_capacity:
-        packed2 = torch.cat([packed2, torch.full((out_capacity - n,), _SENTINEL,
-                                                 dtype=I64, device=dev)])
-    idx_sel = torch.sort(packed2).values[:out_capacity] & ((1 << _IDX_BITS) - 1)
-    out_mask = torch.arange(out_capacity, dtype=I32, device=dev) < n_unique
-    gathered = points[torch.clamp(idx_sel, max=n - 1)]
-    out = torch.where(out_mask[:, None], gathered, torch.zeros_like(gathered))
+        packed2 = torch.cat([packed2, torch.full(lead + (out_capacity - n,), _SENTINEL,
+                                                 dtype=I64, device=dev)], dim=-1)
+    idx_sel = torch.sort(packed2, dim=-1).values[..., :out_capacity] & ((1 << _IDX_BITS) - 1)
+    out_mask = torch.arange(out_capacity, dtype=I32, device=dev) < n_unique[..., None]
+    gathered = _take(points, idx_sel)
+    out = torch.where(out_mask[..., None], gathered, torch.zeros_like(gathered))
     return out, out_mask, n_unique, window_drops
 
 
@@ -343,8 +395,8 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
     ONE int64 sort of (coarse | fine | [12-bit tau] | index), exactly the
     JAX package's key layout (`fused_downsample`, voxel_map.py:599). With
     `tau` the within-cell winner is the earliest point (quantized ties fall
-    back to sensor order)."""
-    n = points.shape[0]
+    back to sensor order). points (..., N, 3), mask and tau (..., N)."""
+    n = points.shape[-2]
     if not out_capacity <= n <= (1 << _IDX_BITS):
         raise ValueError(f"fused_downsample takes out_capacity ({out_capacity}) to "
                          f"{1 << _IDX_BITS} rows, got {n}")
@@ -354,15 +406,14 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
     coarse = (fine + ((fine >> 31) & 1)) >> 1
     fres = fine - 2 * coarse + 1
 
-    a = _first_valid(mask)
-    local_c = coarse - coarse[a][None, :] + (1 << (_DS_BITS - 1))
+    local_c = coarse - _at_first_valid(coarse, mask) + (1 << (_DS_BITS - 1))
     in_window = torch.all((local_c >= 0) & (local_c < (1 << _DS_BITS)), dim=-1)
     valid = mask & in_window
-    window_drops = torch.sum(mask & ~in_window).to(I32)
+    window_drops = torch.sum(mask & ~in_window, dim=-1).to(I32)
 
     lc = local_c.to(I64)
-    ckey = (lc[:, 0] << (2 * _DS_BITS)) | (lc[:, 1] << _DS_BITS) | lc[:, 2]
-    fkey = (fres[:, 0] << 4) | (fres[:, 1] << 2) | fres[:, 2]
+    ckey = (lc[..., 0] << (2 * _DS_BITS)) | (lc[..., 1] << _DS_BITS) | lc[..., 2]
+    fkey = (fres[..., 0] << 4) | (fres[..., 1] << 2) | fres[..., 2]
     key = (ckey << 6) | fkey.to(I64)
     low_bits = _IDX_BITS
     low = torch.arange(n, dtype=I64, device=dev)
@@ -373,7 +424,7 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
         low_bits += _TAU_BITS
     packed = torch.where(valid, (key << low_bits) | low,
                          torch.full_like(key, _SENTINEL))
-    s = torch.sort(packed).values
+    s = torch.sort(packed, dim=-1).values
 
     idx_s = s & ((1 << _IDX_BITS) - 1)
     fine_key = s >> low_bits
@@ -382,25 +433,25 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
     first = valid_s & (fine_key != _shift_prev(fine_key))
     c_first = valid_s & (coarse_key != _shift_prev(coarse_key))
 
-    out_idx = torch.cumsum(first.to(I64), 0) - 1
-    n_found = torch.clamp(out_idx[-1] + 1, min=0)
+    out_idx = torch.cumsum(first.to(I64), -1) - 1
+    n_found = torch.clamp(out_idx[..., -1] + 1, min=0)
     n_unique = torch.clamp(n_found, max=out_capacity).to(I32)
-    head_out = torch.cummax(torch.where(c_first, out_idx, torch.zeros_like(out_idx)), 0).values
+    head_out = torch.cummax(torch.where(c_first, out_idx, torch.zeros_like(out_idx)), -1).values
 
     payload = ((out_idx << 37) | (head_out << 19)
                | (c_first.to(I64) << 18) | idx_s)
     drop = ~(first & (out_idx < out_capacity))
-    sorted2 = torch.sort((drop.to(I64) << 62) | payload).values[:out_capacity]
+    sorted2 = torch.sort((drop.to(I64) << 62) | payload, dim=-1).values[..., :out_capacity]
     m18 = (1 << 18) - 1
     idx_sel = sorted2 & m18
     cfirst_sel = ((sorted2 >> 18) & 1).to(torch.bool)
     head_sel = ((sorted2 >> 19) & m18).to(I32)
     oidx_sel = ((sorted2 >> 37) & m18).to(I32)
 
-    out_pts = points[torch.clamp(idx_sel, max=n - 1)].to(torch.float32)
-    out_mask = torch.arange(out_capacity, dtype=I32, device=dev) < n_unique
+    out_pts = _take(points, idx_sel).to(torch.float32)
+    out_mask = torch.arange(out_capacity, dtype=I32, device=dev) < n_unique[..., None]
     return GroupedCloud(
-        points=torch.where(out_mask[:, None], out_pts, torch.zeros_like(out_pts)),
+        points=torch.where(out_mask[..., None], out_pts, torch.zeros_like(out_pts)),
         mask=out_mask,
         head=cfirst_sel & out_mask,
         head_pos=torch.clamp(head_sel, max=out_capacity - 1),
@@ -416,53 +467,56 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
 
 
 def _neighbor_voxels(queries, cfg: MapConfig) -> torch.Tensor:
-    """(NB, N, 3) int32 candidate voxels of each query, neighbour-major."""
+    """(..., NB, N, 3) int32 candidate voxels of each query, neighbour-major."""
     dev = queries.device
     q = queries.to(torch.float32)
     if cfg.neighborhood == 8:
         # 2x2x2 cover of the +-half-voxel cube around the query
         half = _f32(0.5 * cfg.voxel_size)
-        lo = voxel_of(q - half, cfg.voxel_size)
-        hi = voxel_of(q + half, cfg.voxel_size)
+        lo = voxel_of(q - half, cfg.voxel_size)[..., None, :, :]
+        hi = voxel_of(q + half, cfg.voxel_size)[..., None, :, :]
         b = torch.arange(8, device=dev)
         offs = torch.stack([(b >> 2) & 1, (b >> 1) & 1, b & 1], dim=-1)  # ij order
-        return torch.where(offs[:, None, :] == 0, lo[None], hi[None])
+        return torch.where(offs[:, None, :] == 0, lo, hi)
     b = torch.arange(27, device=dev)
     offs = torch.stack([b // 9 - 1, (b // 3) % 3 - 1, b % 3 - 1], dim=-1).to(I32)
-    return voxel_of(q, cfg.voxel_size)[None] + offs[:, None, :]
+    return voxel_of(q, cfg.voxel_size)[..., None, :, :] + offs[:, None, :]
 
 
 def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
                                    anchor) -> torch.Tensor:
     """Candidate fetch for the GN kernel from the packed i32 slab.
 
-    queries (N, 3) f32 world frame; anchor (3,) centering offset (any
-    dtype; used in f64). Returns (3, NC, N) f32 candidate coordinates
-    centred on `anchor`, NC = Kp * NB, candidate j = kp * NB + nb — the JAX
-    package's (3, NC, N/128, 128) planes without the lane split. +inf marks
-    absent voxels and unused lanes (they lose the kernel's running min)."""
+    queries (..., N, 3) f32 world frame; anchor (..., 3) centering offset
+    (any dtype; used in f64). Returns (..., 3, NC, N) f32 candidate
+    coordinates centred on `anchor`, NC = Kp * NB, candidate j = kp * NB +
+    nb — the JAX package's (3, NC, N/128, 128) planes without the lane
+    split. +inf marks absent voxels and unused lanes (they lose the
+    kernel's running min)."""
     kn = cfg.packed_width
-    n = queries.shape[0]
-    nbr = _neighbor_voxels(queries, cfg)  # (NB, N, 3)
-    nb = nbr.shape[0]
-    nkeys = pack_key(nbr).reshape(-1)
-    slots = _lookup(m, nkeys, qmask.repeat(nb), cfg)
+    n = queries.shape[-2]
+    lead = queries.shape[:-2]
+    nbr = _neighbor_voxels(queries, cfg)  # (..., NB, N, 3)
+    nb = nbr.shape[-3]
+    nkeys = pack_key(nbr).reshape(lead + (nb * n,))
+    slots = _lookup(m, nkeys, qmask.repeat((1,) * len(lead) + (nb,)), cfg)
     present = slots >= 0
     safe = torch.where(present, slots, torch.zeros_like(slots))
-    pk = m.packed[safe.long()].T  # (Kp, NB*N)
-    pk = torch.where(present[None, :], pk, torch.full_like(pk, _PK_SENT32))
+    pk = _take(m.packed, safe).transpose(-1, -2)  # (..., Kp, NB*N)
+    pk = torch.where(present[..., None, :], pk, torch.full_like(pk, _PK_SENT32))
     vs = cfg.voxel_size
     a64 = anchor.to(torch.float64)
     av = torch.round(_tdiv(a64, vs)).to(I32)
-    aoff = (av.to(torch.float64) * vs - a64).to(torch.float32)
-    kv_rel = (nbr - av[None, None, :]).reshape(-1, 3)
+    aoff = (av.to(torch.float64) * vs - a64).to(torch.float32)[..., None, None]
+    kv_rel = (nbr - av[..., None, None, :]).reshape(lead + (nb * n, 3))
     bad = pk < 0
     inf = torch.full(pk.shape, float("inf"), dtype=torch.float32, device=pk.device)
     planes = torch.stack([
-        torch.where(bad, inf, _pk_decode_axis(pk, shift, kv_rel[None, :, axis], aoff[axis], vs))
+        torch.where(bad, inf, _pk_decode_axis(pk, shift, kv_rel[..., None, :, axis],
+                                              aoff[..., axis, :, :], vs))
         for axis, shift in ((0, 2 * _PKL_BITS), (1, _PKL_BITS), (2, 0))
-    ])  # (3, Kp, NB*N)
-    return planes.reshape(3, kn * nb, n)
+    ], dim=-3)  # (..., 3, Kp, NB*N)
+    return planes.reshape(lead + (3, kn * nb, n))
 
 
 # ---------------------------------------------------------------------------
@@ -479,11 +533,12 @@ def _write_rows(m: VoxelMap, g: GroupedCloud, keys, row, pos, ok, cfg: MapConfig
     if m.points.numel():
         for c in range(3):
             new_points = _scatter(new_points, row * (3 * k) + pos * 3 + c,
-                                  g.points[:, c], ok & (row < cap), inplace)
+                                  g.points[..., c], ok & (row < cap), inplace)
     new_packed = m.packed
     if cfg.packed_nn:
         kp = cfg.packed_width
-        pk = _pk_encode(g.points[:, 0], g.points[:, 1], g.points[:, 2], keys, cfg.voxel_size)
+        pk = _pk_encode(g.points[..., 0], g.points[..., 1], g.points[..., 2], keys,
+                        cfg.voxel_size)
         new_packed = _scatter(m.packed, row * kp + pos, pk,
                               ok & (row < cap) & (pos < kp), inplace)
     return new_points, new_packed
@@ -496,34 +551,34 @@ def _insert_grouped_compact(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys,
     voxel-key order) are dropped whole and counted in `drops`."""
     k = cfg.max_points_per_voxel
     capacity = cfg.capacity
-    mrows = g.points.shape[0]
+    mrows = g.points.shape[-2]
     h_cap = cfg.max_insert_voxels
     sb = _slot_bits(cfg)
     dev = keys.device
 
     active_head = g.head & g.mask
     hp = torch.where(active_head, torch.arange(mrows, dtype=I64, device=dev),
-                     torch.full((mrows,), mrows, dtype=I64, device=dev))
-    heads_ext = torch.sort(hp).values[: h_cap + 1].to(I32)
-    heads_idx = heads_ext[:h_cap]
+                     torch.full_like(active_head, mrows, dtype=I64))
+    heads_ext = torch.sort(hp, dim=-1).values[..., : h_cap + 1].to(I32)
+    heads_idx = heads_ext[..., :h_cap]
     valid_h = heads_idx < mrows
-    n_heads_total = torch.sum(active_head).to(I32)
+    n_heads_total = torch.sum(active_head, dim=-1).to(I32)
     capped = torch.clamp(n_heads_total - h_cap, min=0)
 
-    safe_row = torch.clamp(heads_idx, max=mrows - 1).long()
-    keys_h = torch.where(valid_h, keys[safe_row], torch.zeros_like(heads_idx))
+    safe_row = torch.clamp(heads_idx, max=mrows - 1)
+    keys_h = torch.where(valid_h, _take(keys, safe_row), torch.zeros_like(heads_idx))
     fp_h = _fp_of(keys_h, cfg)
     gp_h = grid_pos(keys_h, cfg)
 
-    cell = m.grid[torch.where(valid_h, gp_h, torch.zeros_like(gp_h)).long()]
+    cell = _take(m.grid, torch.where(valid_h, gp_h, torch.zeros_like(gp_h)))
     found = valid_h & (cell >= 0) & ((cell >> sb) == fp_h)
     missing = valid_h & ~found
-    rank_m = (torch.cumsum(missing.to(I32), 0) - 1).to(I32)
-    cand_slot = m.next_slot + rank_m
+    rank_m = (torch.cumsum(missing.to(I32), -1) - 1).to(I32)
+    cand_slot = m.next_slot[..., None] + rank_m
     alloc = missing & (cand_slot < capacity)
-    n_missing = torch.sum(missing).to(I32)
+    n_missing = torch.sum(missing, dim=-1).to(I32)
     new_next = torch.clamp(m.next_slot + n_missing, max=capacity).to(I32)
-    dropped = (torch.sum(missing & ~alloc) + capped).to(I32)
+    dropped = (torch.sum(missing & ~alloc, dim=-1) + capped).to(I32)
 
     minus1 = torch.full_like(cand_slot, -1)
     head_slot = torch.where(found, cell & ((1 << sb) - 1),
@@ -531,9 +586,9 @@ def _insert_grouped_compact(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys,
     ok_head = valid_h & (head_slot >= 0)
 
     slot_safe = torch.where(ok_head, head_slot, torch.zeros_like(head_slot))
-    base_h = torch.where(ok_head, m.npts[slot_safe.long()], torch.zeros_like(head_slot))
-    n_valid_rows = torch.sum(g.mask).to(I32)
-    next_row = torch.minimum(heads_ext[1:], n_valid_rows)
+    base_h = torch.where(ok_head, _take(m.npts, slot_safe), torch.zeros_like(head_slot))
+    n_valid_rows = torch.sum(g.mask, dim=-1).to(I32)
+    next_row = torch.minimum(heads_ext[..., 1:], n_valid_rows[..., None])
     gsize = torch.clamp(next_row - heads_idx, min=0)
     new_count = torch.clamp(base_h + gsize, max=k)
 
@@ -544,8 +599,8 @@ def _insert_grouped_compact(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys,
     # members: head ordinal by running count, one gather of the packed
     # per-head info word (slot | base 4b | ok 1b)
     info_h = (head_slot << 5) | (base_h << 1) | ok_head.to(I32)
-    h_ord = (torch.cumsum(active_head.to(I32), 0) - 1).to(I32)
-    info = info_h[torch.clamp(h_ord, 0, h_cap - 1).long()]
+    h_ord = (torch.cumsum(active_head.to(I32), -1) - 1).to(I32)
+    info = _take(info_h, torch.clamp(h_ord, 0, h_cap - 1))
     ok = g.mask & (h_ord >= 0) & (h_ord < h_cap) & ((info & 1) == 1)
     zero = torch.zeros_like(info)
     slot = torch.where(ok, info >> 5, zero)
@@ -570,7 +625,7 @@ def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys=None,
     capacity = cfg.capacity
     if keys is None:
         keys = pack_key(voxel_of(g.points, cfg.voxel_size))
-    if (0 < cfg.max_insert_voxels < g.points.shape[0] and k <= 15
+    if (0 < cfg.max_insert_voxels < g.points.shape[-2] and k <= 15
             and _slot_bits(cfg) <= 26):
         return _insert_grouped_compact(m, g, cfg, keys, inplace)
     sb = _slot_bits(cfg)
@@ -578,15 +633,15 @@ def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys=None,
     gp = grid_pos(keys, cfg)
 
     active_head = g.head & g.mask
-    cell = m.grid[gp.long()]
+    cell = _take(m.grid, gp)
     found = active_head & (cell >= 0) & ((cell >> sb) == fp)
     missing = active_head & ~found
-    rank_m = (torch.cumsum(missing.to(I32), 0) - 1).to(I32)
-    cand_slot = m.next_slot + rank_m
+    rank_m = (torch.cumsum(missing.to(I32), -1) - 1).to(I32)
+    cand_slot = m.next_slot[..., None] + rank_m
     alloc = missing & (cand_slot < capacity)
-    n_missing = torch.sum(missing).to(I32)
+    n_missing = torch.sum(missing, dim=-1).to(I32)
     new_next = torch.clamp(m.next_slot + n_missing, max=capacity).to(I32)
-    dropped = torch.sum(missing & ~alloc).to(I32)
+    dropped = torch.sum(missing & ~alloc, dim=-1).to(I32)
 
     head_slot = torch.where(found, cell & ((1 << sb) - 1),
                             torch.where(alloc, cand_slot, torch.full_like(cand_slot, -1)))
@@ -595,11 +650,11 @@ def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys=None,
     new_keys = _scatter(m.keys, head_slot, keys, ok_head, inplace)
 
     # resolve every row through the updated grid; base = pre-insert count
-    cell2 = new_grid[gp.long()]
+    cell2 = _take(new_grid, gp)
     ok = g.mask & (cell2 >= 0) & ((cell2 >> sb) == fp)
     zero = torch.zeros_like(cell2)
     slot = torch.where(ok, cell2 & ((1 << sb) - 1), zero)
-    base = torch.where(ok, m.npts[slot.long()], zero)
+    base = torch.where(ok, _take(m.npts, slot), zero)
     pos = base + g.rank
     ok = ok & (pos < k)
     row = torch.where(ok, slot, torch.full_like(slot, capacity))
@@ -617,26 +672,26 @@ def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys=None,
 def evict_far(m: VoxelMap, origin, cfg: MapConfig, exact_boundary: bool = False,
               inplace: bool = False) -> VoxelMap:
     """Tombstone voxels whose voxel-index distance (scaled to metres) from
-    `origin` exceeds max_range. The grid is left untouched (a stale cell
-    resolves to the tombstoned slot, whose rows read as empty). The
+    `origin` (..., 3) exceeds max_range. The grid is left untouched (a stale
+    cell resolves to the tombstoned slot, whose rows read as empty). The
     `exact_boundary` per-point variant waits for the classic-path slice."""
     if exact_boundary:
         raise NotImplementedError(
             "exact_boundary eviction comes with the classic f64 path slice"
         )
     occupied = m.keys >= 0
-    origin_vox = voxel_of(origin.to(torch.float32), cfg.voxel_size)
+    origin_vox = voxel_of(origin.to(torch.float32), cfg.voxel_size)[..., None, :]
     dvox = unpack_key_rel(torch.where(occupied, m.keys, torch.zeros_like(m.keys)),
                           origin_vox).to(torch.float32) * _f32(cfg.voxel_size)
-    d2 = dvox[:, 0] * dvox[:, 0] + dvox[:, 1] * dvox[:, 1] + dvox[:, 2] * dvox[:, 2]
+    d2 = dvox[..., 0] * dvox[..., 0] + dvox[..., 1] * dvox[..., 1] + dvox[..., 2] * dvox[..., 2]
     far = occupied & (d2 > _f32(cfg.max_range**2))
-    tomb = (m.tombstones + torch.sum(far)).to(I32)
+    tomb = (m.tombstones + torch.sum(far, dim=-1)).to(I32)
     if inplace:
         m.keys.masked_fill_(far, DELETED)
         if m.points.numel():
-            m.points.masked_fill_(far[:, None], float("inf"))
+            m.points.masked_fill_(far[..., None], float("inf"))
         if m.packed.numel():
-            m.packed.masked_fill_(far[:, None], _PK_SENT32)
+            m.packed.masked_fill_(far[..., None], _PK_SENT32)
         m.npts.masked_fill_(far, 0)
         return m._replace(tombstones=tomb)
 
@@ -646,13 +701,13 @@ def evict_far(m: VoxelMap, origin, cfg: MapConfig, exact_boundary: bool = False,
 
     return VoxelMap(
         keep_spare(m.keys, DELETED, far),
-        keep_spare(m.points, float("inf"), far[:, None]) if m.points.numel() else m.points,
+        keep_spare(m.points, float("inf"), far[..., None]) if m.points.numel() else m.points,
         keep_spare(m.npts, 0, far),
         tomb,
         m.drops,
         m.grid,
         m.next_slot,
-        keep_spare(m.packed, _PK_SENT32, far[:, None]) if m.packed.numel() else m.packed,
+        keep_spare(m.packed, _PK_SENT32, far[..., None]) if m.packed.numel() else m.packed,
     )
 
 
@@ -660,17 +715,18 @@ def rebuild(m: VoxelMap, cfg: MapConfig) -> VoxelMap:
     """Compact live slots to the front of the slab (reclaims evicted
     slots): order-preserving move, dense grid regenerated, cursor reset."""
     dev = m.keys.device
+    lead = m.keys.shape[:-1]
     occupied = m.keys >= 0
     live_keys = torch.where(occupied, m.keys, torch.zeros_like(m.keys))
-    rank = (torch.cumsum(occupied.to(I32), 0) - 1).to(I32)
+    rank = (torch.cumsum(occupied.to(I32), -1) - 1).to(I32)
 
     def moved(t, fill):
-        row = t.shape[1] if t.dim() == 2 else 1
+        row = t.shape[-1] if t.dim() == len(lead) + 2 else 1
         out = _fresh(t.shape, fill, t.dtype, dev)
         cols = torch.arange(row, device=dev, dtype=I64)
-        flat = (rank.to(I64)[:, None] * row + cols[None, :]).reshape(-1)
-        ok = occupied[:, None].expand(-1, row).reshape(-1)
-        return _scatter(out, flat, t.reshape(-1), ok, inplace=True)
+        flat = (rank.to(I64)[..., None] * row + cols).reshape(lead + (-1,))
+        ok = occupied[..., None].expand(occupied.shape + (row,)).reshape(lead + (-1,))
+        return _scatter(out, flat, t.reshape(lead + (-1,)), ok, inplace=True)
 
     new_keys = moved(m.keys, EMPTY)
     pts = moved(m.points, float("inf")) if m.points.numel() else m.points
@@ -679,6 +735,6 @@ def rebuild(m: VoxelMap, cfg: MapConfig) -> VoxelMap:
     grid = _scatter(_fresh(m.grid.shape, -1, I32, dev), grid_pos(live_keys, cfg),
                     (_fp_of(live_keys, cfg) << sb) | rank, occupied, inplace=True)
     packed = moved(m.packed, _PK_SENT32) if m.packed.numel() else m.packed
-    n_live = torch.sum(occupied).to(I32)
-    return VoxelMap(new_keys, pts, npts, torch.zeros((), dtype=I32, device=dev),
+    n_live = torch.sum(occupied, dim=-1).to(I32)
+    return VoxelMap(new_keys, pts, npts, torch.zeros(lead, dtype=I32, device=dev),
                     m.drops, grid, n_live, packed)

@@ -7,10 +7,10 @@ imports no JAX, so it also runs on a machine without it:
 
 (`--noconftest`: tests/conftest.py configures JAX for the CPU suite).
 
-Tolerances: K2 / K3 1e-9 (both sides f64, different operation order); K1
-R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within 1 (the f32
-per-query work may contract into FMAs in the kernel); card against CPU
-poses 1e-4 over a short drive.
+Tolerances: K2 / K3 1e-9 (both sides f64, different operation order); K1,
+K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
+1 (the f32 per-query work may contract into FMAs in the kernel); card
+against CPU poses 1e-4 over a short drive, single-stream or batched.
 """
 
 import numpy as np
@@ -22,7 +22,9 @@ from lidar_imu_slam_tpu_torch.host import synthetic
 from lidar_imu_slam_tpu_torch.models import kiss_icp
 from lidar_imu_slam_tpu_torch.ops import lie, voxel_map
 from lidar_imu_slam_tpu_torch.ops.kernels import _common, icp_gn, pose_chain
-from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan, preprocess_scan
+from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
+                                                     stack_raw_scans)
+from lidar_imu_slam_tpu_torch.parallel import streams
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +99,88 @@ def test_fused_gn_carry_kernel_matches_plain(dev, offset, n_inner):
     assert abs(row[12] - ref[12]) <= 1
     if n_inner == 6:  # converged onto the true offset
         np.testing.assert_allclose(row[9:12], [0.25, -0.15, 0.1], atol=0.02)
+
+
+def _gn_streams(dev, n_streams, n, seed=0):
+    """Per-stream maps, shifted sources and kernel scalars (stream s
+    shifted and weighted differently, so the streams stop at different
+    iteration counts)."""
+    cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 13, neighborhood=8)
+    rng = np.random.default_rng(seed)
+    world = torch.from_numpy(rng.uniform(-18, 18, (n_streams, 4 * n, 3)).astype(np.float32))
+    world = world.to(dev)
+    ones = torch.ones(n_streams, 4 * n, dtype=torch.bool, device=dev)
+    g = voxel_map.fused_downsample(world, ones, cfg.voxel_size, 4 * n)
+    m = voxel_map.insert_grouped(voxel_map.create(cfg, dev, streams=n_streams), g, cfg)
+    scale = np.linspace(0.02, 0.45, n_streams)[:, None, None]
+    shift = torch.from_numpy((rng.uniform(-1, 1, (n_streams, 1, 3)) * scale).astype(np.float32))
+    src = world[:, :n] - shift.to(dev)
+    anchor = src.mean(1)
+    q = (src - anchor[:, None]).transpose(1, 2).contiguous()
+    mask = torch.ones(n_streams, n, dtype=torch.bool, device=dev)
+    cand = voxel_map.gather_candidate_planes_packed(m, src, mask, cfg, anchor).contiguous()
+    kth = torch.from_numpy(rng.uniform(0.2, 0.8, n_streams)).to(dev)
+    scal = torch.stack([kth, torch.full_like(kth, 2.25)] + [
+        torch.full_like(kth, v) for v in (1e-5, 20.0, 2.0, 0.25, 0.0, 0.0)], dim=-1)
+    return q, mask.float(), cand, scal.contiguous()
+
+
+def _check_rows(rows, ref):
+    rows, ref = rows.cpu().numpy().reshape(-1, 16), ref.cpu().numpy().reshape(-1, 16)
+    np.testing.assert_allclose(rows[:, :9], ref[:, :9], atol=1e-5)
+    np.testing.assert_allclose(rows[:, 9:12], ref[:, 9:12], atol=1e-4)
+    np.testing.assert_array_equal(rows[:, 14:16], ref[:, 14:16])
+    assert np.abs(rows[:, 12] - ref[:, 12]).max() <= 1
+
+
+@pytest.mark.parametrize("n_inner", [1, 4])
+def test_fused_gn_kernel_matches_plain(dev, n_inner):
+    q, qm, cand, scal = (t[0].contiguous() for t in _gn_streams(dev, 1, 1024))
+    before = _common.LAUNCHES["fused_gn"]
+    row = icp_gn.fused_gn(q, qm, cand, scal, n_inner)
+    assert _common.LAUNCHES["fused_gn"] == before + 1
+    _check_rows(row, icp_gn.fused_gn_ref(q, qm, cand, scal, n_inner))
+
+
+@pytest.mark.parametrize("n_streams,n", [(8, 1024), (64, 256)])
+def test_fused_gn_batched_kernel_matches_plain(dev, n_streams, n):
+    q, qm, cand, scal = _gn_streams(dev, n_streams, n, seed=n_streams)
+    before = _common.LAUNCHES["fused_gn_batched"]
+    rows = icp_gn.fused_gn_batched(q, qm, cand, scal, 4)
+    assert _common.LAUNCHES["fused_gn_batched"] == before + 1
+    ref = icp_gn.fused_gn_batched_ref(q, qm, cand, scal, 4)
+    _check_rows(rows, ref)
+    assert len(set(ref[:, 14].tolist())) > 1  # streams stopped at different counts
+
+
+def test_batched_drive_card_matches_cpu(dev):
+    cfg = streams.batch_config(cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
+                                 sort_by_time=False, time_source="per_point"),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
+                             neighborhood=8, store_points=False, max_insert_voxels=700),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
+                             gn_backend="pallas", deskew=True),
+    ))
+    world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
+    gt = synthetic.make_trajectory(n_poses=7, speed=2.0, yaw_rate=0.03, dt=0.1)
+    raws = []
+    for i in range(6):
+        pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5,
+                                                 30.0, noise=0.01, seed=i)
+        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048))
+    states = {d: streams.init_batched_state(cfg, 3, d) for d in (dev, "cpu")}
+    _common.reset_launches()
+    for i in range(4):
+        poses = []
+        for d in (dev, "cpu"):
+            batch = stack_raw_scans([raws[i + s] for s in range(3)])
+            scans = preprocess_scan(type(batch)(*(t.to(d) for t in batch)), cfg.lidar)
+            states[d], out = streams.batched_register_frame_step(states[d], scans, cfg)
+            poses.append(out.pose.cpu())
+        torch.testing.assert_close(poses[0], poses[1], rtol=0, atol=1e-4)
+    assert _common.LAUNCHES["fused_gn_batched"] == 4 * cfg.icp.batch_unroll_outer
+    assert _common.LAUNCHES["fused_gn_carry"] == _common.LAUNCHES["pose_pre"] == 0
 
 
 def test_kernel_rejects_wrong_dtype_on_card(dev):

@@ -175,8 +175,12 @@ def test_step_in_place_matches_functional(drives):
 
 
 @pytest.mark.parametrize("icp_kw", [dict(gn_backend="xla"),
-                                    dict(batch_unroll_outer=2, batch_unroll_inner=6)])
+                                    dict(gn_backend="xla", batch_unroll_outer=2,
+                                         batch_unroll_inner=6)])
 def test_other_paths_name_their_slice(icp_kw):
+    # the batched schedule with the pallas backend is ported
+    # (tests/test_torch_streams.py); the classic f64 loops, batched or
+    # not, still wait for their slice
     cfg = _cfg(tcfg, "tiny")
     cfg = cfg.replace(icp=dataclasses.replace(cfg.icp, **icp_kw))
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -1,7 +1,9 @@
 """Guards for the port's no-fallback rule: without a card `chip_smoke.py`
 fails and prints no result; a kernel wrapper given non-CPU tensors builds /
 loads its kernel or raises — it never runs the plain version; the build
-raises with nvcc's stderr."""
+raises with nvcc's stderr. A whole batched step on non-CPU tensors runs up
+to kernel K5 and raises there (and, on `meta` tensors, shows that nothing
+before it reads the device from the host)."""
 
 import os
 import shutil
@@ -12,7 +14,10 @@ import sys
 import pytest
 import torch
 
+from lidar_imu_slam_tpu_torch import config as cfgmod
 from lidar_imu_slam_tpu_torch.ops.kernels import _build, _common, icp_gn, pose_chain
+from lidar_imu_slam_tpu_torch.ops.preprocess import Scan
+from lidar_imu_slam_tpu_torch.parallel import streams
 
 torch.set_num_threads(1)
 
@@ -51,6 +56,7 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_build, "load", _fail_load)
     monkeypatch.setattr(pose_chain, "_fns", {})
     monkeypatch.setattr(icp_gn, "_fn", None)
+    monkeypatch.setattr(icp_gn, "_fn_batched", None)
 
     def forbidden(*a, **k):
         raise AssertionError("plain version called for non-CPU tensors")
@@ -58,9 +64,11 @@ def no_library(monkeypatch):
     monkeypatch.setattr(pose_chain, "pose_pre_ref", forbidden)
     monkeypatch.setattr(pose_chain, "pose_post_ref", forbidden)
     monkeypatch.setattr(icp_gn, "fused_gn_carry_ref", forbidden)
+    monkeypatch.setattr(icp_gn, "fused_gn_batched_ref", forbidden)
 
 
-@pytest.mark.parametrize("kernel", ["pose_pre", "pose_post", "fused_gn_carry"])
+@pytest.mark.parametrize("kernel", ["pose_pre", "pose_post", "fused_gn_carry", "fused_gn",
+                                    "fused_gn_batched"])
 def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
     f64, f32, i32 = torch.float64, torch.float32, torch.int32
     before = dict(_common.LAUNCHES)
@@ -72,10 +80,35 @@ def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
                 initial_threshold=2.0, max_range=30.0, deskew_on=True)
         elif kernel == "pose_post":
             pose_chain.pose_post(_meta((15,), f64), _meta((32,), f64), max_model_deviation=1.0)
-        else:
+        elif kernel == "fused_gn_carry":
             icp_gn.fused_gn_carry(_meta((3, 256), f32), _meta((256,), f32),
                                   _meta((3, 80, 256), f32), _meta((8,), f64),
                                   _meta((15,), f64), 6)
+        elif kernel == "fused_gn":
+            icp_gn.fused_gn(_meta((3, 256), f32), _meta((256,), f32),
+                            _meta((3, 80, 256), f32), _meta((8,), f64), 4)
+        else:
+            icp_gn.fused_gn_batched(_meta((8, 3, 256), f32), _meta((8, 256), f32),
+                                    _meta((8, 3, 80, 256), f32), _meta((8, 8), f64), 4)
+    assert _common.LAUNCHES == before
+
+
+def test_batched_step_raises_at_the_kernel(no_library):
+    cfg = streams.batch_config(cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
+                                 sort_by_time=False, time_source="per_point"),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
+                             neighborhood=8, store_points=False, max_insert_voxels=700),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
+                             gn_backend="pallas", deskew=True),
+    ))
+    states = streams.init_batched_state(cfg, 3, "meta")
+    f32, f64 = torch.float32, torch.float64
+    scans = Scan(_meta((3, 2048, 3), f32), _meta((3, 2048), f32), _meta((3, 2048), f64),
+                 _meta((3, 2048), torch.bool), _meta((3,), f64), _meta((3,), f64))
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        streams.batched_register_frame_step(states, scans, cfg)
     assert _common.LAUNCHES == before
 
 
