@@ -6,34 +6,47 @@ Needs one CUDA card, nvcc, and this checkout (it drives
 `lidar_imu_slam_tpu_torch`, never JAX). Phases, each fatal on failure:
 
 1. the card: name and power limit (nvidia-smi);
-2. build: every kernel compiled by nvcc from `lidar_imu_slam_tpu_torch/csrc`;
+2. build: every kernel compiled by nvcc from `lidar_imu_slam_tpu_torch/csrc`
+   (one nvcc per source, all started together);
 3. kernels: K1 `fused_gn_carry`, K2 `pose_pre` and K3 `pose_post` held
    against their plain PyTorch versions on the card at main-path shapes
    (K1: N = 4096 queries x NC = 80 candidate slots from seeded synthetic
    geometry), each timed beside its plain version with CUDA events;
-4. small drive: 5 scans of a small configuration on the card (kernels) and
-   on the CPU (plain versions) — poses must agree;
-5. slice: the HDL-64E-scale deployment (131,072-point rolling-shutter
+4. batched kernels: K4 `fused_gn` (one stream, 4096 x 80) and K5
+   `fused_gn_batched` at both batched deployments' shapes (8 streams x
+   4096 queries x 80 slots; 256 x 512 x 16), held against their plain
+   versions per stream and timed beside them;
+5. K6 `nn_bruteforce` at the classic path's shape (4096 queries x a
+   1,310,720-entry pool, ~30% +inf, 256 exact ties): indices and d^2
+   equal to the plain version's bit for bit, timed beside the plain
+   version and the `torch.cdist` + min yardstick;
+6. small drives: 5 scans of a small configuration on the card and on the
+   CPU, fast path (kernels) and classic f64 path (gn_backend="xla"), and
+   3 classic streams x 5 scans under `batch_config` — poses must agree;
+7. slice: the HDL-64E-scale deployment (131,072-point rolling-shutter
    scans at 8 m/s, 1 m voxels, a 2^17-slot packed map, 8-voxel
    neighbourhood, CV deskew, fused ICP), 120 scans through
    `register_frame_step` with eviction / conditional compaction every 10
    scans. Launch counters are zeroed just before it and read just after:
    every kernel must have run, K2 and K3 once per scan. Poses must be
    finite and the ATE (mid-scan convention) at most 0.12 m;
-6. batched kernels: K4 `fused_gn` (one stream, 4096 x 80) and K5
-   `fused_gn_batched` at both batched deployments' shapes (8 streams x
-   4096 queries x 80 slots; 256 x 512 x 16), held against their plain
-   versions per stream and timed beside them;
-7. small batched drive: 3 streams x 5 small scans under `batch_config` on
+8. classic slice: bench.py's f64 anchor (mode 5: the same deployment with
+   gn_backend="xla", so the f32 point slab) on the same 120 scans — ATE at
+   most 0.12 m, host reads per scan counted, no kernel launched;
+9. K6 on its path: the classic map's pool queried with the last scan's
+   keypoints, against the plain version and the hash fetch
+   `voxel_map.nearest_neighbors` (never farther; equal wherever the hash
+   searched K6's winning voxel);
+10. small batched drive: 3 streams x 5 small scans under `batch_config` on
    the card and on the CPU, and 5 scans of one stream through
    `register_frame` under `batch_config` (kernel K4, counted) — poses must
    agree;
-8. multi-stream: the deployment of bench.py:_bench_batched_chained — the
+11. multi-stream: the deployment of bench.py:_bench_batched_chained — the
    HDL-64E config under `batch_config` (2 x 4 unroll), 8 streams x 60
    scans of the slice's drive, stream s at step i on scan min(i + s, 59).
    Every pose finite, stream 0's ATE at most 0.12 m, K5 launched exactly
    2 x 60 times and K1-K3 never;
-9. Monte-Carlo: the deployment of bench.py:_bench_monte_carlo — 256
+12. Monte-Carlo: the deployment of bench.py:_bench_monte_carlo — 256
    perturbed VLP-16 streams (sigma 0.01 m), 2 warm + 20 timed steps;
    every stream must end within 0.5 m of the ground truth
    (tracking_frac 1.0).
@@ -48,8 +61,10 @@ when there is no CUDA card or any phase fails.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -66,6 +81,12 @@ STREAMS = 8  # bench.py:_bench_batched_chained
 STREAM_SCANS = 60
 MC_STREAMS = 256  # bench.py:_bench_monte_carlo
 MC_STEPS = 20
+K6_QUERIES = 4096  # the classic path's max_source_points
+K6_POOL = (1 << 17) * 10  # capacity x points per voxel of the classic map
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 rate and the
+# f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -101,9 +122,32 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_cfg(cfgmod, points_per_scan: int):
-    """The HDL-64E-scale fast-path deployment (bench.py:_make_cfg with
-    gn_backend="pallas")."""
+def _bound_ms(n_bytes: float, n_ops: float):
+    """The least time the card could take: bytes at the memory rate or f32
+    operations at the non-tensor-core peak, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _gn_bound(q, qmask, cand, scal, rows, carry=None):
+    """K1 / K4 / K5: every input read once, the rows written once; per GN
+    iteration a stream runs, each query's 8 f32 operations per candidate
+    slot (d^2) plus ~40 for its transform, residual and weight."""
+    rows2 = rows.reshape(-1, 16)
+    n, nc = q.shape[-1], cand.shape[-2]
+    iters = float(rows2[:, 14].sum())
+    extra = (carry,) if carry is not None else ()
+    return _bound_ms(_nbytes(q, qmask, cand, scal, rows, *extra), iters * n * (8.0 * nc + 40.0))
+
+
+def bench_cfg(cfgmod, points_per_scan: int, gn_backend: str = "pallas"):
+    """The HDL-64E-scale deployment of bench.py:_make_cfg: the fast path
+    with gn_backend="pallas" (packed slab only), the classic f64 path with
+    gn_backend="xla" (the f32 point slab too)."""
     return cfgmod.PipelineConfig(
         lidar=cfgmod.LidarConfig(
             num_scan_lines=64, max_points=points_per_scan, min_range=2.5,
@@ -111,11 +155,11 @@ def bench_cfg(cfgmod, points_per_scan: int):
         ),
         map=cfgmod.MapConfig(
             voxel_size=1.0, max_range=80.0, capacity=1 << 17, neighborhood=8,
-            store_points=False, max_insert_voxels=20480,
+            store_points=gn_backend == "xla", max_insert_voxels=20480,
         ),
         icp=cfgmod.IcpConfig(
             max_map_points=32768, max_source_points=4096,
-            estimation_threshold=5e-4, gn_backend="pallas", deskew=True,
+            estimation_threshold=5e-4, gn_backend=gn_backend, deskew=True,
         ),
     )
 
@@ -179,11 +223,14 @@ def kernel_phase(dev, cfg):
     _require(abs(a[12] - b[12]) <= 1, "K1 n_corr disagrees")
     ms = _cuda_ms(lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner), 50)
     plain_ms = _cuda_ms(lambda: icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner), 5)
-    print(f"K1 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call")
+    bound, by = _gn_bound(q, qmask, cand, scal, k1, carry)
+    print(f"K1 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  bound {bound:.5f} ms ({by})")
+    # no single PyTorch call computes a robust GN solve: library_ms is null
     results.append(dict(name="fused_gn_carry", route="cuda",
                         source="lidar_imu_slam_tpu_torch/csrc/icp_gn.cu",
                         replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:383",
-                        max_abs_err=max(err_R, err_t), ms=ms, plain_ms=plain_ms))
+                        max_abs_err=max(err_R, err_t), ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=None))
 
     # K2: seeded f64 pose state (5 poses: every branch live)
     f64 = dict(dtype=torch.float64, device=dev)
@@ -205,11 +252,13 @@ def kernel_phase(dev, cfg):
     _require(err <= 1e-9, "K2 disagrees with its plain version")
     ms = _cuda_ms(lambda: pose_chain.pose_pre(*pre_args, **kw), 200)
     plain_ms = _cuda_ms(lambda: pose_chain.pose_pre_ref(*pre_args, **kw), 20)
-    print(f"K2 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call")
+    bound, by = _bound_ms(_nbytes(*pre_args, row), 0.0)  # a few hundred f64 operations
+    print(f"K2 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  bound {bound:.7f} ms ({by})")
     results.append(dict(name="pose_pre", route="cuda",
                         source="lidar_imu_slam_tpu_torch/csrc/pose_chain.cu",
                         replaces=f"{REFERENCE_PKG}/ops/pallas/pose_chain.py:244",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=None))
 
     # K3: the K1 result as the correction, the K2 row as the guess
     mmd = cfg.icp.max_model_deviation
@@ -220,11 +269,13 @@ def kernel_phase(dev, cfg):
     _require(err <= 1e-9, "K3 disagrees with its plain version")
     ms = _cuda_ms(lambda: pose_chain.pose_post(k1, row, max_model_deviation=mmd), 200)
     plain_ms = _cuda_ms(lambda: pose_chain.pose_post_ref(k1, row, max_model_deviation=mmd), 20)
-    print(f"K3 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call")
+    bound, by = _bound_ms(_nbytes(k1, row, post), 0.0)
+    print(f"K3 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  bound {bound:.7f} ms ({by})")
     results.append(dict(name="pose_post", route="cuda",
                         source="lidar_imu_slam_tpu_torch/csrc/pose_chain.cu",
                         replaces=f"{REFERENCE_PKG}/ops/pallas/pose_chain.py:346",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=None))
     return results
 
 
@@ -426,33 +477,40 @@ def batched_kernel_phase(dev, cfg, cfgmod):
     _require(tuple(mc[2].shape) == (MC_STREAMS, 3, 16, 512), f"K5 MC candidates {mc[2].shape}")
 
     one = tuple(t[0].contiguous() for t in hdl)
-    err4, _ = _rows_err(icp_gn.fused_gn(*one, inner), icp_gn.fused_gn_ref(*one, inner),
-                        "K4 fused_gn (1 x 4096 x 80)")
+    rows4 = icp_gn.fused_gn(*one, inner)
+    err4, _ = _rows_err(rows4, icp_gn.fused_gn_ref(*one, inner), "K4 fused_gn (1 x 4096 x 80)")
     ms4 = _cuda_ms(lambda: icp_gn.fused_gn(*one, inner), 50)
     plain4 = _cuda_ms(lambda: icp_gn.fused_gn_ref(*one, inner), 5)
-    print(f"K4 {ms4:.4f} ms/launch  plain {plain4:.4f} ms/call")
+    bound4, by4 = _gn_bound(*one, rows4)
+    print(f"K4 {ms4:.4f} ms/launch  plain {plain4:.4f} ms/call  bound {bound4:.5f} ms ({by4})")
 
-    errs, times = [], {}
+    errs, times, bounds = [], {}, {}
     for name, args in (("8 x 4096 x 80", hdl), ("256 x 512 x 16", mc)):
-        err, iters = _rows_err(icp_gn.fused_gn_batched(*args, inner),
-                               icp_gn.fused_gn_batched_ref(*args, inner),
+        rows = icp_gn.fused_gn_batched(*args, inner)
+        err, iters = _rows_err(rows, icp_gn.fused_gn_batched_ref(*args, inner),
                                f"K5 fused_gn_batched ({name})")
         _require(len(iters) > 1, f"K5 ({name}): every stream stopped at one count")
         errs.append(err)
         times[name] = (_cuda_ms(lambda: icp_gn.fused_gn_batched(*args, inner), 50),
                        _cuda_ms(lambda: icp_gn.fused_gn_batched_ref(*args, inner), 5))
-        print(f"K5 ({name}) {times[name][0]:.4f} ms/launch  plain {times[name][1]:.4f} ms/call")
+        bounds[name] = _gn_bound(*args, rows)
+        print(f"K5 ({name}) {times[name][0]:.4f} ms/launch  plain {times[name][1]:.4f} ms/call"
+              f"  bound {bounds[name][0]:.5f} ms ({bounds[name][1]})")
     src = "lidar_imu_slam_tpu_torch/csrc/icp_gn.cu"
     return [
         dict(name="fused_gn", route="cuda", source=src,
              replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:281",
-             max_abs_err=err4, ms=ms4, plain_ms=plain4),
+             max_abs_err=err4, ms=ms4, plain_ms=plain4, bound_ms=bound4, bound_by=by4,
+             library_ms=None),
         dict(name="fused_gn_batched", route="cuda", source=src,
              replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:415",
              max_abs_err=max(errs), ms=times["8 x 4096 x 80"][0],
              plain_ms=times["8 x 4096 x 80"][1],
+             bound_ms=bounds["8 x 4096 x 80"][0], bound_by=bounds["8 x 4096 x 80"][1],
+             library_ms=None,
              ms_256x512x16=times["256 x 512 x 16"][0],
-             plain_ms_256x512x16=times["256 x 512 x 16"][1]),
+             plain_ms_256x512x16=times["256 x 512 x 16"][1],
+             bound_ms_256x512x16=bounds["256 x 512 x 16"][0]),
     ]
 
 
@@ -493,7 +551,8 @@ def small_batched_phase(dev):
     for i in range(7):
         pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5,
                                                  30.0, noise=0.01, seed=i)
-        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048))
+        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048,
+                                  device="cpu"))
 
     def on(d, raw):
         return RawScan(*(t.to(d) for t in raw))
@@ -634,6 +693,268 @@ def monte_carlo_phase(dev, cfgmod):
     return launches
 
 
+def _cdist_min(q, pool_rows, chunk):
+    """The library yardstick for K6: torch.cdist (no matmul shortcut) and a
+    min over the same pool chunks as the plain version. Timed only."""
+    import torch
+
+    best = None
+    for start in range(0, pool_rows.shape[0], chunk):
+        d = torch.cdist(q, pool_rows[start:start + chunk],
+                        compute_mode="donot_use_mm_for_euclid_dist").min(dim=1).values
+        best = d if best is None else torch.minimum(best, d)
+    return best
+
+
+def _k6_check(what, q, pool):
+    """K6 against its plain version on the card: indices equal and d^2 equal
+    bit for bit (both round every f32 step the same way). Returns (d2, idx,
+    max |d2 - d2_plain| over the finite entries)."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as nnb
+
+    d2, idx = nnb.nn_bruteforce(q, pool)
+    d2_p, idx_p = nnb.nn_bruteforce_plain(q, pool)
+    torch.cuda.synchronize()
+    n_idx = int((idx != idx_p).sum())
+    n_d2 = int((d2.view(torch.int32) != d2_p.view(torch.int32)).sum())
+    print(f"{what}: {q.shape[0]} x {pool.shape[1]}: indices differing {n_idx}, d2 bit patterns "
+          f"differing {n_d2} (tol 0 and 0)")
+    _require(n_idx == 0 and n_d2 == 0, f"{what}: K6 disagrees with its plain version")
+    fin = torch.isfinite(d2_p)
+    return d2, idx, float((d2 - d2_p)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def nn_kernel_phase(dev):
+    """K6 against its plain version at the classic path's shape: 4096
+    queries x a 1,310,720-entry pool with ~30% +inf entries and exact
+    duplicate points (ties the first index must win), timed beside the
+    plain version and the cdist yardstick."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as nnb
+
+    rng = np.random.default_rng(3)
+    lo, hi = np.array([-80.0, -80.0, -3.0]), np.array([80.0, 80.0, 12.0])
+    pts = rng.uniform(lo, hi, (K6_POOL, 3)).astype(np.float32)
+    pts[rng.uniform(size=K6_POOL) < 0.3] = np.inf
+    dup = rng.choice(K6_POOL // 2, 256, replace=False)
+    tie = rng.uniform(lo, hi, (256, 3)).astype(np.float32)
+    pts[dup] = tie
+    pts[dup + K6_POOL // 2] = tie  # the same point at a later index
+    qs = rng.uniform(lo, hi, (K6_QUERIES, 3)).astype(np.float32)
+    qs[:256] = tie  # exact hits: d2 = 0 at two indices
+    pool = torch.from_numpy(np.ascontiguousarray(pts.T)).to(dev)
+    q = torch.from_numpy(qs).to(dev)
+    d2, idx, err = _k6_check("K6 nn_bruteforce", q, pool)
+    _require(bool((idx[:256].cpu().numpy() == dup).all()),
+             "K6: an exact tie did not resolve to the first index")
+    ms = _cuda_ms(lambda: nnb.nn_bruteforce(q, pool), 50)
+    plain_ms = _cuda_ms(lambda: nnb.nn_bruteforce_plain(q, pool), 3)
+    rows = pool.T.contiguous()
+    library_ms = _cuda_ms(lambda: _cdist_min(q, rows, nnb.PLAIN_CHUNK), 1)
+    n, m = q.shape[0], pool.shape[1]
+    bound, by = _bound_ms(_nbytes(q, pool, d2, idx), 8.0 * n * m)
+    print(f"K6 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  cdist+min {library_ms:.4f} ms  "
+          f"bound {bound:.4f} ms ({by}); 256 exact ties resolved to the first index")
+    return dict(name="nn_bruteforce", route="cuda",
+                source="lidar_imu_slam_tpu_torch/csrc/nn_bruteforce.cu",
+                replaces=f"{REFERENCE_PKG}/ops/pallas/nn_bruteforce.py:66",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+
+
+def _small_cfg(cfgmod, gn_backend):
+    return cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
+                                 sort_by_time=False, time_source="per_point"),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
+                             neighborhood=8, store_points=gn_backend == "xla",
+                             max_insert_voxels=700),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
+                             max_iterations=20, gn_backend=gn_backend, deskew=True),
+    )
+
+
+def small_classic_phase(dev):
+    """gn_backend="xla" on the card and on the CPU: 5 small scans through
+    register_frame_step, then 3 streams x 5 scans under batch_config (one
+    step under sync debug mode "error"). No kernel may launch."""
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import (RawScan, pack_raw_scan,
+                                                         preprocess_scan, stack_raw_scans)
+    from lidar_imu_slam_tpu_torch.parallel import streams
+
+    cfg = _small_cfg(cfgmod, "xla")
+    world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
+    gt = synthetic.make_trajectory(n_poses=8, speed=2.0, yaw_rate=0.03, dt=0.1)
+    raws = []
+    for i in range(7):
+        pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5,
+                                                 30.0, noise=0.01, seed=i)
+        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048,
+                                  device="cpu"))
+
+    def on(d, raw):
+        return RawScan(*(t.to(d) for t in raw))
+
+    _common.reset_launches()
+    single = {d: kiss_icp.init_state(cfg, d) for d in (dev, "cpu")}
+    worst = 0.0
+    for i in range(5):
+        poses = {}
+        for d in (dev, "cpu"):
+            single[d], out = kiss_icp.register_frame_step(
+                single[d], preprocess_scan(on(d, raws[i]), cfg.lidar), cfg)
+            poses[d] = out.pose.cpu().numpy()
+        worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
+    print(f"small classic drive (xla): card vs CPU max|d pose| {worst:.3e} (tol 1e-4)")
+    _require(worst <= 1e-4, "small classic drive: card and CPU poses disagree")
+
+    bcfg = streams.batch_config(cfg)
+    states = {d: streams.init_batched_state(bcfg, 3, d) for d in (dev, "cpu")}
+    worst = 0.0
+    for i in range(5):
+        poses = {}
+        for d in (dev, "cpu"):
+            scans = preprocess_scan(on(d, stack_raw_scans(raws[i:i + 3])), bcfg.lidar)
+            if d != "cpu" and i == 3:
+                states[d], out = _no_sync(
+                    lambda: streams.batched_register_frame_step(states[d], scans, bcfg))
+            else:
+                states[d], out = streams.batched_register_frame_step(states[d], scans, bcfg)
+            poses[d] = out.pose.cpu().numpy()
+        worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
+    print(f"small classic batched drive (xla, 3 streams): card vs CPU max|d pose| {worst:.3e} "
+          f"(tol 1e-4); step 4 ran under sync debug mode 'error'")
+    _require(worst <= 1e-4, "small classic batched drive: card and CPU poses disagree")
+    _require(not any(_common.LAUNCHES.values()),
+             f"the classic path launched a kernel: {_common.LAUNCHES}")
+
+
+def classic_slice_phase(dev, cfg64, raws, gt):
+    """The classic f64 deployment (bench.py mode 5, `_make_cfg(131072,
+    gn_backend="xla")`) on the slice's 120-scan drive, eviction at block
+    boundaries. Returns the final state and the last scan's output."""
+    import warnings
+
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
+
+    body = cfg64.replace(map=dataclasses.replace(cfg64.map, auto_evict=False,
+                                                 auto_rebuild=False))
+    cap = cfg64.map.capacity
+
+    def run(n_scans, timed=True):
+        state = kiss_icp.init_state(cfg64, dev)
+        poses, iters, ms = [], [], []
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter()
+        for i in range(n_scans):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            state, out = kiss_icp.register_frame_step(
+                state, preprocess_scan(raws[i], body.lidar), body)
+            if (i + 1) % BLOCK == 0:
+                m = voxel_map.evict_far(state.map, state.pose[:3, 3], cfg64.map, inplace=True)
+                if bool((m.next_slot > cap - cap // 4) & (m.tombstones > cap // 16)):
+                    m = voxel_map.rebuild(m, cfg64.map)
+                state = state._replace(map=m)
+            ev1.record()
+            poses.append(out.pose)
+            iters.append(out.icp_iterations)
+            ms.append((ev0, ev1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall0
+        step_ms = np.array([a.elapsed_time(b) for a, b in ms])
+        return (state, out, torch.stack(poses).cpu().numpy(),
+                torch.stack(iters).cpu().numpy(), wall, step_ms)
+
+    # host reads, counted by the sync debug mode over the first 20 scans
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, _, _, it20, _, _ = run(20)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    syncs = sum(sites.values())
+    _common.reset_launches()
+    state, out, poses, iters, wall, step_ms = run(N_SCANS)
+    launches = dict(_common.LAUNCHES)
+    _require(np.isfinite(poses).all(), "classic slice: non-finite pose")
+    ate = _ate(poses, gt, shift=0.5)
+    print(f"classic slice (xla, f64): {N_SCANS / wall:.2f} scans/s  "
+          f"p50 {np.percentile(step_ms, 50):.3f} ms  p95 {np.percentile(step_ms, 95):.3f} ms "
+          f"per scan (CUDA events)")
+    print(f"classic slice: ICP iterations mean {iters.mean():.2f} max {iters.max()}  "
+          f"host reads per scan {syncs / 20:.2f} over scans 0-19 (sync debug mode; "
+          f"their ICP iterations mean {it20.mean():.2f})  map voxels "
+          f"{int(voxel_map.num_voxels(state.map))}  drops {int(state.map.drops)}  "
+          f"launches {launches}")
+    print(f"classic slice: host reads over scans 0-19 by call site {dict(sites.most_common(8))}")
+    print(f"classic slice: ATE {ate:.4f} m (mid-scan, limit {ATE_LIMIT_M})")
+    _require(ate <= ATE_LIMIT_M, f"classic slice: ATE {ate:.4f} m above {ATE_LIMIT_M}")
+    _require(not any(launches.values()), f"classic slice launched a kernel: {launches}")
+    return state, out
+
+
+def nn_on_path_phase(dev, cfg64, state, out):
+    """K6 on the classic slice's final map: its pool, queried with the last
+    scan's masked keypoints, against the plain version and against the
+    hash fetch `voxel_map.nearest_neighbors` (the 8-voxel block around each
+    query, all K points of each voxel).
+
+    K6 is never farther. Where K6's winner lies in a voxel the hash fetch
+    searched, the two are equal (the same f32 expression over a superset).
+    Every other query is one whose winner is filed under a voxel key one
+    voxel off its position — the insert keys points by their position
+    before the ICP correction (register_core, PARITY.md) — and is counted:
+    within half a voxel these are the only queries where the two differ."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as nnb
+
+    mcfg = cfg64.map
+    pool = nnb.pool_from_map(state.map, mcfg)
+    _require(tuple(pool.shape) == (3, K6_POOL), f"K6 pool {tuple(pool.shape)}")
+    q = out.keypoints[out.keypoints_mask][:K6_QUERIES].contiguous()
+    live = int(torch.isfinite(pool[0]).sum())
+    _common.reset_launches()
+    d2, idx, _ = _k6_check("K6 on the classic map", q, pool)
+    launches = _common.LAUNCHES["nn_bruteforce"]
+    ones = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+    _, d2_hash, found = voxel_map.nearest_neighbors(state.map, q, ones, mcfg)
+    slots = voxel_map._neighbor_slots(state.map, q, ones, mcfg)
+    searched = (slots == (idx // mcfg.max_points_per_voxel)[:, None]).any(dim=-1)
+    near = found & (d2_hash <= (0.5 * mcfg.voxel_size) ** 2)
+    worse = int((found & (d2 > d2_hash)).sum())
+    unequal = int((found & searched & (d2 != d2_hash)).sum())
+    near_off = int((near & (d2 != d2_hash)).sum())
+    closer = float((found & (d2 < d2_hash)).float().mean())
+    print(f"K6 on the classic map: {q.shape[0]} keypoints, {live} live pool entries; hash "
+          f"found {int(found.sum())}; K6 farther than the hash {worse} (tol 0); unequal with "
+          f"the winner's voxel searched {unequal} (tol 0); within half a voxel "
+          f"{int(near.sum())}, of which {near_off} differ (winner filed one voxel off); "
+          f"K6 strictly closer for {closer:.4%} of the queries")
+    _require(worse == 0, "K6 found a farther point than the hash fetch")
+    _require(unequal == 0, "K6 and the hash fetch differ where the hash searched K6's winner")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -659,10 +980,16 @@ def main() -> int:
                 print("  ptxas:", line.strip())
 
     cfg = bench_cfg(cfgmod, POINTS_PER_SCAN)
-    kernels = kernel_phase(dev, cfg) + batched_kernel_phase(dev, cfg, cfgmod)
+    cfg64 = bench_cfg(cfgmod, POINTS_PER_SCAN, gn_backend="xla")
+    kernels = (kernel_phase(dev, cfg) + batched_kernel_phase(dev, cfg, cfgmod)
+               + [nn_kernel_phase(dev)])
     small_drive_phase(dev)
+    small_classic_phase(dev)
     raws, gt = render_hdl_drive(dev)
     launches = slice_phase(dev, cfg, raws, gt)
+    state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
+    launches["nn_bruteforce"] = nn_on_path_phase(dev, cfg64, state64, out64)
+    del state64, out64
     # each kernel's launches come from the drive of its own path
     launches["fused_gn"] = small_batched_phase(dev)["fused_gn"]
     launches["fused_gn_batched"] = multi_stream_phase(dev, cfg, raws, gt)["fused_gn_batched"]

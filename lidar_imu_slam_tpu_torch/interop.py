@@ -33,7 +33,7 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def kiss_state_from_numpy(tree, device: torch.device | str = "cpu") -> KissState:
+def kiss_state_from_numpy(tree, device: torch.device | str = "cuda") -> KissState:
     """Port state from the numpy leaves of a JAX KissState."""
     m, thr = tree.map, tree.threshold
     return KissState(
@@ -71,7 +71,7 @@ def _stream_count(tree) -> int:
     return s.pop()[0]
 
 
-def batched_kiss_state_from_numpy(tree, device: torch.device | str = "cpu") -> KissState:
+def batched_kiss_state_from_numpy(tree, device: torch.device | str = "cuda") -> KissState:
     """Port state from the numpy leaves of a JAX batched KissState (a
     leading stream axis S on every leaf, as `init_batched_state` makes)."""
     _stream_count(tree)

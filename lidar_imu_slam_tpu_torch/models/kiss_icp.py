@@ -13,12 +13,17 @@ Two paths, chosen by the config as in the JAX package:
   (`pose_post`: compose, divergence gate, orthonormalize, map delta) ->
   map insert / evict. Host syncs per scan: one per ICP round, plus one for
   the conditional compaction when `cfg.map.auto_rebuild` is on.
-* the classic bookkeeping with the fixed-unroll fused ICP (gn_backend=
-  "pallas", batch_unroll_outer > 0, as `parallel.streams.batch_config`
-  sets it): the pose chain in plain f64 tensor code (`register_core`) and
-  one K4 launch per ICP round (K5 when the state carries a leading stream
-  axis). No host sync unless `auto_rebuild` is on, which batch_config
-  turns off.
+* the classic branch (every other config): the pose chain in plain f64
+  tensor code (`register_core`) and the ICP the config selects —
+  - gn_backend="xla" (the default config): the f64 loops over candidates
+    from the f32 point slab, no kernel. The while loop reads one flag pair
+    from the device per GN iteration; under `batch_unroll_outer > 0` the
+    fixed unroll reads nothing;
+  - gn_backend="pallas" with `batch_unroll_outer > 0` (as
+    `parallel.streams.batch_config` sets it): the fixed unroll with one K4
+    launch per ICP round (K5 when the state carries a leading stream axis).
+  Plus one host read per scan for the conditional compaction when
+  `cfg.map.auto_rebuild` is on, which batch_config turns off.
 
 Poses and threshold accumulators are f64; points f32. The classic path
 takes a state and scan whose every leaf has a leading stream axis S (the
@@ -98,7 +103,7 @@ class FastCoreOutput(NamedTuple):
     window_drops: torch.Tensor
 
 
-def init_state(cfg: PipelineConfig, device: torch.device | str = "cpu",
+def init_state(cfg: PipelineConfig, device: torch.device | str = "cuda",
                streams: int | None = None) -> KissState:
     """A fresh state; with `streams`, S fresh states on a leading axis."""
     lead = () if streams is None else (streams,)
@@ -389,25 +394,21 @@ def register_frame_classic(state: KissState, scan: Scan, cfg: PipelineConfig,
     return new_state, out
 
 
-def _check_ported(cfg: PipelineConfig) -> None:
-    if cfg.icp.gn_backend != "pallas":
-        raise NotImplementedError(
-            "gn_backend='xla' is the classic f64 path, which comes with a "
-            "later slice of the port; use gn_backend='pallas'"
-        )
+def _is_fast(cfg: PipelineConfig) -> bool:
+    return cfg.icp.gn_backend == "pallas" and cfg.icp.batch_unroll_outer == 0
 
 
 def register_frame(state: KissState, scan: Scan, cfg: PipelineConfig):
     """One odometry step (reference icp.cpp:49-86). Returns (state', out);
     the passed state is left unchanged.
 
-    gn_backend="pallas" with batch_unroll_outer == 0 runs the fast path,
-    with batch_unroll_outer > 0 the classic branch (kernel K4);
-    gn_backend="xla" raises NotImplementedError naming its slice."""
-    _check_ported(cfg)
-    if cfg.icp.batch_unroll_outer > 0:
-        return register_frame_classic(state, scan, cfg)
-    return _register_frame_fast(state, scan, cfg)
+    gn_backend="pallas" with batch_unroll_outer == 0 runs the fast path;
+    every other config the classic branch: with gn_backend="pallas" the
+    fixed unroll on kernel K4, with gn_backend="xla" (the default) the f64
+    loops."""
+    if _is_fast(cfg):
+        return _register_frame_fast(state, scan, cfg)
+    return register_frame_classic(state, scan, cfg)
 
 
 def register_frame_step(state: KissState, scan: Scan, cfg: PipelineConfig):
@@ -415,7 +416,6 @@ def register_frame_step(state: KissState, scan: Scan, cfg: PipelineConfig):
     the analogue of the JAX package's donated `register_frame_step`: no
     copy of the ~40 MB map per scan. The caller must not reuse `state`
     after the call (the returned state shares its storage)."""
-    _check_ported(cfg)
-    if cfg.icp.batch_unroll_outer > 0:
-        return register_frame_classic(state, scan, cfg, inplace=True)
-    return _register_frame_fast(state, scan, cfg, inplace=True)
+    if _is_fast(cfg):
+        return _register_frame_fast(state, scan, cfg, inplace=True)
+    return register_frame_classic(state, scan, cfg, inplace=True)

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels (`lidar_imu_slam_tpu_torch/csrc`).
 
 At the first call of a kernel wrapper on CUDA tensors, every `csrc/*.cu`
-is compiled by nvcc into ONE shared library with a plain C interface:
+is compiled by its own nvcc, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/libkernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu
 
 (no --use_fast_math: the kernels rely on +inf candidates and exact sqrt /
-sin / cos) and loaded with ctypes. The library name carries a sha256 of
+sin / cos), the objects are linked into ONE shared library with a plain C
+interface (`nvcc -shared -o build/libkernels_<hash>.so`) and loaded with
+ctypes. The library name carries a sha256 of
 every source, so an edited source is never served stale. The build goes
 into `lidar_imu_slam_tpu_torch/build/` (git-ignored); nvcc's output,
 including ptxas' register / spill report, is kept beside it as
@@ -33,7 +35,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -86,18 +88,32 @@ def build() -> str:
     cu = [p for p in sources() if p.endswith(".cu")]
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    with open(os.path.join(BUILD_DIR, f"nvcc_{tag}.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}) building "
-            f"{', '.join(os.path.basename(p) for p in cu)}:\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p], text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for p, o in zip(cu, objs)]
+        steps = []
+        for p, proc in zip(cu, procs):
+            out, err = proc.communicate()
+            steps.append((os.path.basename(p), proc.returncode, out, err))
+        if all(rc == 0 for _, rc, _, _ in steps):
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            steps.append(("link", link.returncode, link.stdout, link.stderr))
+        build_seconds = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, f"nvcc_{tag}.log"), "w") as f:
+            f.writelines(f"== {name}\n{out}{err}" for name, _, out, err in steps)
+        failed = [(name, rc, err) for name, rc, _, err in steps if rc != 0]
+        if failed:
+            raise KernelBuildError("\n".join(
+                f"nvcc failed (exit {rc}) on {name}:\n{err}" for name, rc, err in failed))
+        os.replace(tmp, lib_path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return lib_path
 
 

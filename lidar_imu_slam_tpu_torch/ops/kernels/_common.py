@@ -13,7 +13,7 @@ import torch
 
 # launches per kernel; incremented by each wrapper right where it launches
 LAUNCHES: dict[str, int] = {"fused_gn_carry": 0, "pose_pre": 0, "pose_post": 0,
-                            "fused_gn": 0, "fused_gn_batched": 0}
+                            "fused_gn": 0, "fused_gn_batched": 0, "nn_bruteforce": 0}
 
 
 def reset_launches() -> None:

@@ -168,7 +168,9 @@ def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    # a fill kernel: assigning a Python scalar to the 0-d view T[3, 3] of
+    # a single pose copies it from the host, which waits for the device
+    T[..., 3:, 3:].fill_(1.0)
     return T
 
 

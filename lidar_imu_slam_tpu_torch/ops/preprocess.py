@@ -167,7 +167,7 @@ def stack_raw_scans(raws) -> RawScan:
 
 def pack_raw_scan(xyz, time=None, ring=None, stamp=0.0,
                   max_points: int | None = None,
-                  device: torch.device | str = "cpu") -> RawScan:
+                  device: torch.device | str = "cuda") -> RawScan:
     """Pad numpy-like arrays into a RawScan of tensors on `device`."""
     xyz = np.asarray(xyz, dtype=np.float32)
     n = xyz.shape[0]

@@ -6,9 +6,11 @@ the axis is explicit: every leaf of the state carries a leading S (map
 tables (S, C), (S, G), (S, C, Kp), scalars (S,), poses (S, 4, 4) f64), each
 table the front view of one flat (S*G + 1,) buffer, and one call of
 `models.kiss_icp.register_frame_classic` registers all S streams: batched
-sorts and stream-offset gathers / scatters in plain torch, and one launch
-of kernel K5 (`fused_gn_batched`, one thread block per stream) per ICP
-round. No step reads the device from the host.
+sorts and stream-offset gathers / scatters in plain torch, and per ICP
+round one launch of kernel K5 (`fused_gn_batched`, one thread block per
+stream) with gn_backend="pallas", or the f64 GN iterations of
+`icp_registration_unrolled` with gn_backend="xla". No step reads the
+device from the host.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def batch_config(cfg: PipelineConfig, outer: int = 2, inner: int = 4) -> Pipelin
 
 
 def init_batched_state(cfg: PipelineConfig, num_streams: int,
-                       device: torch.device | str = "cpu") -> kiss_icp.KissState:
+                       device: torch.device | str = "cuda") -> kiss_icp.KissState:
     """S fresh states on a leading stream axis."""
     return kiss_icp.init_state(cfg, device, streams=num_streams)
 
@@ -43,7 +45,6 @@ def _check_batched(cfg: PipelineConfig) -> None:
     if cfg.icp.batch_unroll_outer <= 0:
         raise ValueError("batched streams run the fixed-unroll schedule: pass "
                          "batch_config(cfg) (batch_unroll_outer > 0)")
-    kiss_icp._check_ported(cfg)
 
 
 def batched_register_frame(states: kiss_icp.KissState, scans: Scan, cfg: PipelineConfig):

@@ -9,8 +9,10 @@ imports no JAX, so it also runs on a machine without it:
 
 Tolerances: K2 / K3 1e-9 (both sides f64, different operation order); K1,
 K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
-1 (the f32 per-query work may contract into FMAs in the kernel); card
-against CPU poses 1e-4 over a short drive, single-stream or batched.
+1 (the f32 per-query work may contract into FMAs in the kernel); K6
+indices equal and d^2 bit-equal (it rounds every f32 step as the plain
+version does); card against CPU poses 1e-4 over a short drive,
+single-stream or batched, fast or classic.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ from lidar_imu_slam_tpu_torch import config as cfgmod
 from lidar_imu_slam_tpu_torch.host import synthetic
 from lidar_imu_slam_tpu_torch.models import kiss_icp
 from lidar_imu_slam_tpu_torch.ops import lie, voxel_map
-from lidar_imu_slam_tpu_torch.ops.kernels import _common, icp_gn, pose_chain
+from lidar_imu_slam_tpu_torch.ops.kernels import _common, icp_gn, nn_bruteforce, pose_chain
 from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
                                                      stack_raw_scans)
 from lidar_imu_slam_tpu_torch.parallel import streams
@@ -168,7 +170,8 @@ def test_batched_drive_card_matches_cpu(dev):
     for i in range(6):
         pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5,
                                                  30.0, noise=0.01, seed=i)
-        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048))
+        raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048,
+                                  device="cpu"))
     states = {d: streams.init_batched_state(cfg, 3, d) for d in (dev, "cpu")}
     _common.reset_launches()
     for i in range(4):
@@ -215,3 +218,51 @@ def test_drive_card_matches_cpu(dev):
         torch.testing.assert_close(poses[0], poses[1], rtol=0, atol=1e-4)
     assert _common.LAUNCHES["pose_pre"] == _common.LAUNCHES["pose_post"] == 4
     assert _common.LAUNCHES["fused_gn_carry"] >= 4
+
+
+@pytest.mark.parametrize("n,m", [(1000, 50_000), (4096, 300_001)])
+def test_nn_bruteforce_kernel_matches_plain(dev, n, m):
+    rng = np.random.default_rng(n)
+    pts = rng.uniform(-30, 30, (m, 3)).astype(np.float32)
+    pts[rng.uniform(size=m) < 0.3] = np.inf
+    dup = rng.choice(m // 2, 64, replace=False)
+    tie = rng.uniform(-30, 30, (64, 3)).astype(np.float32)
+    pts[dup] = tie
+    pts[dup + m // 2] = tie  # the same point at a later index
+    qs = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    qs[:64] = tie
+    pool = torch.from_numpy(np.ascontiguousarray(pts.T)).to(dev)
+    q = torch.from_numpy(qs).to(dev)
+    before = _common.LAUNCHES["nn_bruteforce"]
+    d2, idx = nn_bruteforce.nn_bruteforce(q, pool)
+    assert _common.LAUNCHES["nn_bruteforce"] == before + 1
+    d2_p, idx_p = nn_bruteforce.nn_bruteforce_plain(q, pool)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(d2.view(torch.int32), d2_p.view(torch.int32))
+    np.testing.assert_array_equal(idx[:64].cpu().numpy(), dup)
+
+
+def test_classic_drive_card_matches_cpu(dev):
+    cfg = cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20),
+    )
+    assert cfg.icp.gn_backend == "xla"
+    world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
+    gt = synthetic.make_trajectory(n_poses=4, speed=1.2, yaw_rate=0.03, dt=0.1)
+    states = {d: kiss_icp.init_state(cfg, d) for d in (dev, "cpu")}
+    _common.reset_launches()
+    for i in range(4):
+        pts = synthetic.render_scan(world, gt[i], 1500, 0.5, 30.0, noise=0.01, seed=i)
+        poses = []
+        for d in (dev, "cpu"):
+            raw = pack_raw_scan(pts, stamp=i * 0.1, max_points=2048, device=d)
+            states[d], out = kiss_icp.register_frame_step(states[d], preprocess_scan(
+                raw, cfg.lidar), cfg)
+            poses.append(out.pose.cpu())
+        torch.testing.assert_close(poses[0], poses[1], rtol=0, atol=1e-4)
+    assert not any(_common.LAUNCHES.values())
+    pool = nn_bruteforce.pool_from_map(states[dev].map, cfg.map)
+    cpu_pool = nn_bruteforce.pool_from_map(states["cpu"].map, cfg.map)
+    assert pool.shape == cpu_pool.shape

@@ -187,7 +187,7 @@ def test_unrolled_registration_matches_vmapped_jax(n_inner):
 
 
 def test_unrolled_empty_map_returns_guess():
-    mt = tvm.create(TCFG, streams=2)
+    mt = tvm.create(TCFG, "cpu", streams=2)
     guess = torch.eye(4, dtype=torch.float64).repeat(2, 1, 1)
     guess[1, 0, 3] = 2.5
     r = ticp.icp_registration_fused_unrolled(
@@ -201,7 +201,8 @@ def test_unrolled_empty_map_returns_guess():
 @pytest.mark.parametrize("outer", [0, 2])
 def test_registration_dispatch_pallas_branches(outer):
     """Both pallas branches of registration_dispatch against JAX's: the
-    fused loop (outer 0) and the fixed unroll (outer 2, inner 4)."""
+    fused loop (outer 0) and the fixed unroll (outer 2, inner 4); then the
+    xla branch of the same schedule."""
     mj, src, guess = _case("near")
     kw = dict(gn_backend="pallas", batch_unroll_outer=outer, batch_unroll_inner=4,
               max_iterations=30, estimation_threshold=1e-5)
@@ -215,6 +216,14 @@ def test_registration_dispatch_pallas_branches(outer):
     assert np.abs(rt.pose.numpy() - np.asarray(rj.pose)).max() < 1e-3
     assert int(rt.iterations) == int(rj.iterations)
     assert bool(rt.converged) == bool(rj.converged)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ticp.registration_dispatch(None, None, None, None, None, TCFG,
-                                   IcpConfig(gn_backend="xla"))
+    # the same config with gn_backend="xla" runs the f64 loops (while loop or
+    # unroll), held to JAX as tests/test_torch_classic.py holds them
+    kx = dict(kw, gn_backend="xla")
+    rj = jicp.registration_dispatch(jvm.VoxelMap(*mj), jnp.asarray(src), jnp.ones(N, bool),
+                                    jnp.asarray(guess), jnp.float64(0.5), JCFG, JIcpConfig(**kx))
+    rt = ticp.registration_dispatch(tvm.VoxelMap(*(torch.from_numpy(np.array(a)) for a in mj)),
+                                    torch.from_numpy(src), torch.ones(N, dtype=torch.bool),
+                                    torch.from_numpy(guess), torch.tensor(0.5, dtype=torch.float64),
+                                    TCFG, IcpConfig(**kx))
+    assert int(rt.iterations) == int(rj.iterations)
+    np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose), rtol=0, atol=1e-9)

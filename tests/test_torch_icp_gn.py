@@ -135,7 +135,7 @@ def test_starved_correspondences_freeze():
 
 
 def test_empty_map_returns_guess():
-    mj, mt = jvm.create(JCFG), tvm.create(TCFG)
+    mj, mt = jvm.create(JCFG), tvm.create(TCFG, "cpu")
     guess = np.eye(4)
     guess[0, 3] = 2.5
     rj, rt, pose_t = _register_both(mj, mt, np.zeros((128, 3), np.float32), guess)

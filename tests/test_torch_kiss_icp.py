@@ -15,8 +15,6 @@ head-compacted insert, CV deskew on rolling-shutter scans).
   against ground truth no worse than JAX's + 1e-3 m.
 """
 
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
@@ -87,7 +85,8 @@ def _jax_scan(s, cfg):
 
 def _torch_scan(s, cfg):
     return tpre.preprocess_scan(tpre.pack_raw_scan(s[0], time=s[1], stamp=s[2],
-                                                   max_points=cfg.lidar.max_points), cfg.lidar)
+                                                   max_points=cfg.lidar.max_points,
+                                                   device="cpu"), cfg.lidar)
 
 
 def _np_tree(state):
@@ -99,7 +98,7 @@ def drives(request):
     name = request.param
     cj, ct = _cfg(jcfg, name), _cfg(tcfg, name)
     scans, gt = _scans(name)
-    sj, st = jk.init_state(cj), tk.init_state(ct)
+    sj, st = jk.init_state(cj), tk.init_state(ct, "cpu")
     states_j, poses_j, poses_t, maps_t = [], [], [], []
     for s in scans:
         sj, oj = jk.register_frame_jit(sj, _jax_scan(s, cj), cj)
@@ -139,7 +138,7 @@ def test_shared_state_step(drives):
     tree = drives["states_j"][2]
     sj = jk.KissState(jvm.VoxelMap(*tree.map), tree.pose, tree.pose_prev, tree.first_pose,
                       tree.num_poses, jicp.ThresholdState(*tree.threshold))
-    st = interop.kiss_state_from_numpy(tree)
+    st = interop.kiss_state_from_numpy(tree, "cpu")
     scan = drives["scans"][3]
     _, oj = jk.register_frame_jit(sj, _jax_scan(scan, cj), cj)
     _, ot = tk.register_frame(st, _torch_scan(scan, ct), ct)
@@ -152,7 +151,7 @@ def test_shared_state_step(drives):
 
 def test_interop_round_trip(drives):
     tree = drives["states_j"][3]
-    back = interop.kiss_state_to_numpy(interop.kiss_state_from_numpy(tree))
+    back = interop.kiss_state_to_numpy(interop.kiss_state_from_numpy(tree, "cpu"))
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(tuple(back))):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
@@ -161,7 +160,7 @@ def test_interop_round_trip(drives):
 def test_step_in_place_matches_functional(drives):
     ct = drives["ct"]
     scans = drives["scans"]
-    st = tk.init_state(ct)
+    st = tk.init_state(ct, "cpu")
     for s in scans[:2]:
         st, _ = tk.register_frame(st, _torch_scan(s, ct), ct)
     keys_before = st.map.keys.clone()
@@ -172,16 +171,3 @@ def test_step_in_place_matches_functional(drives):
     for a, b in zip(new_f.map, new_s.map):
         assert torch.equal(a, b)
     assert new_s.map.keys.data_ptr() == st.map.keys.data_ptr()  # updated in place
-
-
-@pytest.mark.parametrize("icp_kw", [dict(gn_backend="xla"),
-                                    dict(gn_backend="xla", batch_unroll_outer=2,
-                                         batch_unroll_inner=6)])
-def test_other_paths_name_their_slice(icp_kw):
-    # the batched schedule with the pallas backend is ported
-    # (tests/test_torch_streams.py); the classic f64 loops, batched or
-    # not, still wait for their slice
-    cfg = _cfg(tcfg, "tiny")
-    cfg = cfg.replace(icp=dataclasses.replace(cfg.icp, **icp_kw))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tk.register_frame(tk.init_state(cfg), None, cfg)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from lidar_imu_slam_tpu_torch import config as cfgmod
-from lidar_imu_slam_tpu_torch.ops.kernels import _build, _common, icp_gn, pose_chain
+from lidar_imu_slam_tpu_torch.ops.kernels import _build, _common, icp_gn, nn_bruteforce, pose_chain
 from lidar_imu_slam_tpu_torch.ops.preprocess import Scan
 from lidar_imu_slam_tpu_torch.parallel import streams
 
@@ -57,6 +57,7 @@ def no_library(monkeypatch):
     monkeypatch.setattr(pose_chain, "_fns", {})
     monkeypatch.setattr(icp_gn, "_fn", None)
     monkeypatch.setattr(icp_gn, "_fn_batched", None)
+    monkeypatch.setattr(nn_bruteforce, "_fn", None)
 
     def forbidden(*a, **k):
         raise AssertionError("plain version called for non-CPU tensors")
@@ -65,10 +66,11 @@ def no_library(monkeypatch):
     monkeypatch.setattr(pose_chain, "pose_post_ref", forbidden)
     monkeypatch.setattr(icp_gn, "fused_gn_carry_ref", forbidden)
     monkeypatch.setattr(icp_gn, "fused_gn_batched_ref", forbidden)
+    monkeypatch.setattr(nn_bruteforce, "nn_bruteforce_plain", forbidden)
 
 
 @pytest.mark.parametrize("kernel", ["pose_pre", "pose_post", "fused_gn_carry", "fused_gn",
-                                    "fused_gn_batched"])
+                                    "fused_gn_batched", "nn_bruteforce"])
 def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
     f64, f32, i32 = torch.float64, torch.float32, torch.int32
     before = dict(_common.LAUNCHES)
@@ -87,9 +89,11 @@ def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
         elif kernel == "fused_gn":
             icp_gn.fused_gn(_meta((3, 256), f32), _meta((256,), f32),
                             _meta((3, 80, 256), f32), _meta((8,), f64), 4)
-        else:
+        elif kernel == "fused_gn_batched":
             icp_gn.fused_gn_batched(_meta((8, 3, 256), f32), _meta((8, 256), f32),
                                     _meta((8, 3, 80, 256), f32), _meta((8, 8), f64), 4)
+        else:
+            nn_bruteforce.nn_bruteforce(_meta((4096, 3), f32), _meta((3, 8192), f32))
     assert _common.LAUNCHES == before
 
 

@@ -115,7 +115,7 @@ class TestPreprocess:
         jc, tc = _lidar_cfgs(sort_by_time, time_source)
         kw = _raw(0)
         sj = jpre.preprocess_scan(jpre.pack_raw_scan(**kw), jc)
-        st = tpre.preprocess_scan(tpre.pack_raw_scan(**kw), tc)
+        st = tpre.preprocess_scan(tpre.pack_raw_scan(**kw, device="cpu"), tc)
         for f in jpre.Scan._fields:
             a, b = np.asarray(getattr(sj, f)), getattr(st, f).numpy()
             assert a.dtype == b.dtype, f
@@ -126,7 +126,7 @@ class TestPreprocess:
         jc, tc = _lidar_cfgs(sort_by_time, "rotation_model")
         kw = _raw(1, with_time=False)
         sj = jpre.preprocess_scan(jpre.pack_raw_scan(**kw), jc)
-        st = tpre.preprocess_scan(tpre.pack_raw_scan(**kw), tc)
+        st = tpre.preprocess_scan(tpre.pack_raw_scan(**kw, device="cpu"), tc)
         np.testing.assert_array_equal(st.mask.numpy(), np.asarray(sj.mask))
         np.testing.assert_allclose(st.rel_t.numpy(), np.asarray(sj.rel_t), atol=1e-7)
         np.testing.assert_allclose(st.tau.numpy(), np.asarray(sj.tau), atol=1e-5)
@@ -149,14 +149,14 @@ class TestPreprocess:
         _, t_auto = _lidar_cfgs(sort_by_time, "auto")
         _, t_rot = _lidar_cfgs(sort_by_time, "rotation_model")
         kw = _raw(1, with_time=False)
-        a = tpre.preprocess_scan(tpre.pack_raw_scan(**kw), t_auto)
-        b = tpre.preprocess_scan(tpre.pack_raw_scan(**kw), t_rot)
+        a = tpre.preprocess_scan(tpre.pack_raw_scan(**kw, device="cpu"), t_auto)
+        b = tpre.preprocess_scan(tpre.pack_raw_scan(**kw, device="cpu"), t_rot)
         for f in tpre.Scan._fields:
             np.testing.assert_array_equal(getattr(a, f).numpy(), getattr(b, f).numpy())
 
     def test_pack_raw_scan_equal(self):
         kw = _raw(2)
-        rj, rt = jpre.pack_raw_scan(**kw), tpre.pack_raw_scan(**kw)
+        rj, rt = jpre.pack_raw_scan(**kw), tpre.pack_raw_scan(**kw, device="cpu")
         for f in jpre.RawScan._fields:
             a, b = np.asarray(getattr(rj, f)), getattr(rt, f).numpy()
             assert a.dtype == b.dtype and a.shape == b.shape, f

@@ -90,11 +90,12 @@ def _raw_scans(name):
             pts, rel = jsyn.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5, 30.0,
                                                 noise=0.01, seed=i)
             raws.append(tpre.pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1,
-                                           max_points=2048))
+                                           max_points=2048, device="cpu"))
         else:
             pts = jsyn.render_scan(world, gt[i], 1500, 0.5, 30.0, noise=0.01, seed=i)
             ring = (np.arange(len(pts)) % 16).astype(np.int32)
-            raws.append(tpre.pack_raw_scan(pts, ring=ring, stamp=i * 0.1, max_points=2048))
+            raws.append(tpre.pack_raw_scan(pts, ring=ring, stamp=i * 0.1, max_points=2048,
+                                           device="cpu"))
     return raws, gt
 
 
@@ -119,7 +120,7 @@ def drive(request):
     raws, gt = _raw_scans(name)
     steps = [tpre.preprocess_scan(tpre.stack_raw_scans([raws[i + s] for s in range(S)]),
                                   ct.lidar) for i in range(N_SCANS)]
-    sj, st = jstreams.init_batched_state(cj, S), tstreams.init_batched_state(ct, S)
+    sj, st = jstreams.init_batched_state(cj, S), tstreams.init_batched_state(ct, S, "cpu")
     states_j, poses_j, poses_t, states_t = [], [], [], []
     for scan in steps:
         sj, oj = jstreams.batched_register_frame_jit(sj, _to_jax_scan(scan), cj)
@@ -157,7 +158,7 @@ def test_shared_state_step(drive):
     tree = drive["states_j"][2]
     scan = drive["steps"][3]
     sj_next, oj = jstreams.batched_register_frame_jit(_jax_state(tree), _to_jax_scan(scan), cj)
-    st_next, ot = tstreams.batched_register_frame(interop.batched_kiss_state_from_numpy(tree),
+    st_next, ot = tstreams.batched_register_frame(interop.batched_kiss_state_from_numpy(tree, "cpu"),
                                                   scan, ct)
     pj, pt = np.asarray(oj.pose), ot.pose.numpy()
     assert np.abs(pt[:, :3, 3] - pj[:, :3, 3]).max() < 1e-3
@@ -171,7 +172,7 @@ def test_shared_state_step(drive):
 
 def test_step_in_place_matches_functional(drive):
     ct, steps = drive["ct"], drive["steps"]
-    st = interop.batched_kiss_state_from_numpy(drive["states_j"][1])
+    st = interop.batched_kiss_state_from_numpy(drive["states_j"][1], "cpu")
     keys_before = st.map.keys.clone()
     new_f, out_f = tstreams.batched_register_frame(st, steps[2], ct)
     assert torch.equal(st.map.keys, keys_before)
@@ -184,12 +185,12 @@ def test_step_in_place_matches_functional(drive):
 
 def test_batched_interop_round_trip(drive):
     tree = drive["states_j"][3]
-    back = interop.batched_kiss_state_to_numpy(interop.batched_kiss_state_from_numpy(tree))
+    back = interop.batched_kiss_state_to_numpy(interop.batched_kiss_state_from_numpy(tree, "cpu"))
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(tuple(back))):
         assert a.dtype == b.dtype and a.shape == b.shape and a.shape[0] == S
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="leading stream axis"):
-        interop.batched_kiss_state_from_numpy(_np_tree(jk.init_state(drive["cj"])))
+        interop.batched_kiss_state_from_numpy(_np_tree(jk.init_state(drive["cj"])), "cpu")
 
 
 def test_single_stream_batch_config_matches_jax():
@@ -197,7 +198,7 @@ def test_single_stream_batch_config_matches_jax():
     without a stream axis (kernel K4 in both packages)."""
     cj, ct = _cfg(jcfg, "compact"), _cfg(tcfg, "compact")
     raws, _ = _raw_scans("compact")
-    sj, st = jk.init_state(cj), tk.init_state(ct)
+    sj, st = jk.init_state(cj), tk.init_state(ct, "cpu")
     for raw in raws[:N_SCANS]:
         scan = tpre.preprocess_scan(raw, ct.lidar)
         sj, oj = jk.register_frame_jit(sj, _to_jax_scan(scan), cj)
@@ -213,7 +214,7 @@ def test_batched_requires_batch_config():
     cfg = _cfg(tcfg, "compact")
     fast = cfg.replace(icp=dataclasses.replace(cfg.icp, batch_unroll_outer=0))
     with pytest.raises(ValueError, match="batch_config"):
-        tstreams.batched_register_frame(tstreams.init_batched_state(fast, 2), None, fast)
+        tstreams.batched_register_frame(tstreams.init_batched_state(fast, 2, "cpu"), None, fast)
 
 
 def test_conditional_rebuild_per_stream():
@@ -224,7 +225,7 @@ def test_conditional_rebuild_per_stream():
     rng = np.random.default_rng(8)
     pts = torch.from_numpy(rng.uniform(-5, 5, (S, 2048, 3)).astype(np.float32))
     g = tvm.fused_downsample(pts, torch.ones(S, 2048, dtype=torch.bool), 0.5, 2048)
-    m = tvm.insert_grouped(tvm.create(cfg.map, streams=S), g, cfg.map)
+    m = tvm.insert_grouped(tvm.create(cfg.map, "cpu", streams=S), g, cfg.map)
     far = torch.tensor([[100.0, 0.0, 0.0], [0.0, 0.0, 0.0]], dtype=torch.float64)
     m = tvm.evict_far(m, far, cfg.map)  # stream 0 loses every voxel, stream 1 none
     assert (m.next_slot > 896).all() and m.tombstones[0] > 64 and m.tombstones[1] == 0
@@ -281,7 +282,7 @@ def test_batched_map_sequence_bit_equal(max_insert_voxels):
     cj, ct = jcfg.MapConfig(**kw), tcfg.MapConfig(**kw)
     rng = np.random.default_rng(max_insert_voxels)
     mj = jax.tree.map(lambda x: jnp.stack([x] * S), jvm.create(cj))
-    mt = tvm.create(ct, streams=S)
+    mt = tvm.create(ct, "cpu", streams=S)
     _assert_maps_equal(mj, mt, "create")
 
     def j_step(m, p, k, t, origin):
@@ -337,7 +338,8 @@ def test_batched_preprocess_equal(sort_by_time):
     for s in range(3):
         pts = rng.uniform(-40, 40, (900, 3)).astype(np.float32)
         raws.append(tpre.pack_raw_scan(pts, time=s + rng.uniform(0, 0.1, 900), stamp=float(s),
-                                       ring=rng.integers(0, 16, 900), max_points=1024))
+                                       ring=rng.integers(0, 16, 900), max_points=1024,
+                                       device="cpu"))
     batch = tpre.stack_raw_scans(raws)
     t = tpre.preprocess_scan(batch, tcfg.LidarConfig(**cfg_kw))
     j = jax.vmap(lambda r: jpre.preprocess_scan(r, jcfg.LidarConfig(**cfg_kw)))(

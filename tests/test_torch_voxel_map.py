@@ -42,7 +42,7 @@ def test_map_sequence_bit_equal(max_insert_voxels, store_points):
     kw = dict(BASE, max_insert_voxels=max_insert_voxels, store_points=store_points)
     cj, ct = jcfg.MapConfig(**kw), tcfg.MapConfig(**kw)
     rng = np.random.default_rng(max_insert_voxels + store_points)
-    mj, mt = jvm.create(cj), tvm.create(ct)
+    mj, mt = jvm.create(cj), tvm.create(ct, "cpu")
     _assert_maps_equal(mj, mt, "create")
     for it in range(5):
         pts, mask, tau = _cloud(rng, 2048, it * 4.0)
@@ -71,7 +71,7 @@ def test_functional_insert_leaves_input_unchanged():
     rng = np.random.default_rng(7)
     pts, mask, _ = _cloud(rng, 2048, 0.0)
     g = tvm.fused_downsample(torch.from_numpy(pts), torch.from_numpy(mask), c.voxel_size, 1024)
-    m0 = tvm.create(c)
+    m0 = tvm.create(c, "cpu")
     snapshot = [t.clone() for t in m0]
     m1 = tvm.insert_grouped(m0, g, c)
     tvm.evict_far(m1, torch.zeros(3), c)
@@ -121,7 +121,7 @@ def test_candidate_planes_equal(neighborhood, anchor_kind):
     c = jcfg.MapConfig(**BASE, neighborhood=neighborhood)
     ct = tcfg.MapConfig(**BASE, neighborhood=neighborhood)
     rng = np.random.default_rng(neighborhood)
-    mj, mt = jvm.create(c), tvm.create(ct)
+    mj, mt = jvm.create(c), tvm.create(ct, "cpu")
     for it in range(2):
         pts, mask, _ = _cloud(rng, 2048, it * 2.0, spread=15.0)
         gj = jvm.fused_downsample(jnp.asarray(pts), jnp.asarray(mask), c.voxel_size, 1024)
