@@ -20,9 +20,19 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    1,310,720-entry pool, ~30% +inf, 256 exact ties): indices and d^2
    equal to the plain version's bit for bit, timed beside the plain
    version and the `torch.cdist` + min yardstick;
+5b. probes: the tools/ probes P1-P4 through the port's probe entry point
+   (`python -m lidar_imu_slam_tpu_torch.tools.probes all`) at the probes'
+   own shapes — that run's counts are the probe kernels' launches. Its
+   rows hold `take_rows` (P1, P4 f32 W = 128 and 512, P4 i32 broadcast)
+   and `take_lanes` (P2) bit-equal to their plain versions and `gn_proto`
+   (P3, 4096 x 80 x 8 iterations) within GN_TOL with an equal conv, each
+   timed beside its plain version and (gathers) the PyTorch library gather;
 6. small drives: 5 scans of a small configuration on the card and on the
    CPU, fast path (kernels) and classic f64 path (gn_backend="xla"), and
    3 classic streams x 5 scans under `batch_config` — poses must agree;
+   then the tiny LIO deployment (`__graft_entry__._tiny_cfg`) over 8 scans
+   on both registration branches, static init completing at scan 1 —
+   poses must agree;
 7. slice: the HDL-64E-scale deployment (131,072-point rolling-shutter
    scans at 8 m/s, 1 m voxels, a 2^17-slot packed map, 8-voxel
    neighbourhood, CV deskew, fused ICP), 120 scans through
@@ -33,6 +43,14 @@ Needs one CUDA card, nvcc, and this checkout (it drives
 8. classic slice: bench.py's f64 anchor (mode 5: the same deployment with
    gn_backend="xla", so the f32 point slab) on the same 120 scans — ATE at
    most 0.12 m, host reads per scan counted, no kernel launched;
+8b. LIO slice: bench.py:_bench_lio's deployment (the fast config with a
+   16-sample IMU packet, a 2-pose EKF trail, ICP-tuned pose noise) on the
+   same 120 scans with 100 Hz IMU packets of the trajectory, through
+   `lio.step_donated`, eviction / compaction every 10 scans. Host reads
+   per scan over scans 0-19 by call site; launch counters zeroed just
+   before the timed run: K2 and K3 once per scan, K1 launched. Poses
+   finite, `used_imu` on every scan after static init, ATE at the scan end
+   at most LIO_ATE_LIMIT_M;
 9. K6 on its path: the classic map's pool queried with the last scan's
    keypoints, against the plain version and the hash fetch
    `voxel_map.nearest_neighbors` (never farther; equal wherever the hash
@@ -83,6 +101,13 @@ MC_STREAMS = 256  # bench.py:_bench_monte_carlo
 MC_STEPS = 20
 K6_QUERIES = 4096  # the classic path's max_source_points
 K6_POOL = (1 << 17) * 10  # capacity x points per voxel of the classic map
+LIO_ATE_LIMIT_M = 0.30  # scan-end ATE of the LIO slice (JAX: 0.2075, BENCH_r05)
+LIO_IMU_CAP = 16  # bench.py:_bench_lio's packet budget
+PROBE_REPLACES = {  # the tools/ Pallas probes each probe kernel ports
+    "take_rows": "tools/exp_pallas.py:52 (P1), tools/exp_gather2.py:34 (P4)",
+    "take_lanes": "tools/exp_pallas.py:79 (P2)",
+    "gn_proto": "tools/exp_pallas.py:296 (P3, _gn_kernel :114)",
+}
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 rate and the
 # f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -955,6 +980,206 @@ def nn_on_path_phase(dev, cfg64, state, out):
     return launches
 
 
+def probe_phase(dev):
+    """The tools/ probes P1-P4 through the port's probe entry point on the
+    card; the counts of this run are the probe path's launches. Each row of
+    the entry point holds one kernel case against its plain version (the
+    gathers bit-equal in every case, gn_proto within GN_TOL with an equal
+    conv), its times beside the plain version's and the library call's,
+    and the bytes and operations its bound is taken from."""
+    import io
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.tools import probes as tp
+
+    _common.reset_launches()
+    buf = io.StringIO()
+    rows = tp.run("all", dev, out=buf)
+    launches = {k: _common.LAUNCHES[k] for k in PROBE_REPLACES}
+    for line in buf.getvalue().splitlines():
+        print("probes:", line)
+    _require(all(r["correct"] for r in rows), "probes: a probe reported correct=False")
+
+    results = {}
+    for r in rows:
+        name = r["kernel"]
+        if name is None:
+            continue
+        tol = tp.GN_TOL if name == "gn_proto" else 0.0
+        _require(r["max_abs_err"] <= tol,
+                 f"{name} {r['probe']} {r['name']}: {r['max_abs_err']} from its plain version")
+        bound, by = _bound_ms(r["bytes"], r["ops"])
+        case = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound,
+                    library_ms=r["library_ms"])
+        print(f"{name} {r['probe']} {r['name']}: bound {bound:.6f} ms ({by})")
+        if name not in results:
+            results[name] = dict(name=name, route="cuda",
+                                 source="lidar_imu_slam_tpu_torch/csrc/probes.cu",
+                                 replaces=PROBE_REPLACES[name], max_abs_err=r["max_abs_err"],
+                                 bound_by=by, **case)
+        else:  # take_rows' later cases, under their probe's name
+            k = results[name]
+            k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
+            k.update({f"{key}[{r['probe']} {r['name']}]": v for key, v in case.items()})
+    return list(results.values()), launches
+
+
+def _lio_small_cfg(cfgmod, gn_backend):
+    """__graft_entry__._tiny_cfg, on the branch `gn_backend` picks."""
+    return cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12, max_probes=16,
+                             store_points=gn_backend == "xla"),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20,
+                             gn_backend=gn_backend),
+        ekf=cfgmod.EkfConfig(lidar_pose_trail=4),
+        imu=cfgmod.ImuConfig(max_init_count=20, max_samples_per_scan=32),
+    )
+
+
+def _imu_packets(gt, cap, device):
+    """bench.py:_bench_lio's IMU: 100 Hz samples of the trajectory, packet i
+    the samples in [0.1 i, 0.1 (i + 1)), at most 10, times + 1 ms."""
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.models import lio
+
+    stream = synthetic.make_imu_stream(gt, 0.1, imu_rate=100.0)
+    return [lio.pack_imu_packet(*p, cap, device=device)
+            for p in synthetic.imu_packets(*stream, len(gt))]
+
+
+def small_lio_phase(dev):
+    """The tiny LIO deployment on the card and on the CPU, both branches,
+    over scans on which static init completes and the IMU branch runs."""
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.models import lio
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan, preprocess_scan
+
+    n = 8
+    world = synthetic.make_world(seed=11, n_points=30000, extent=(40.0, 12.0, 5.0))
+    gt = synthetic.make_trajectory(n_poses=n, speed=3.0, yaw_rate=0.02, dt=0.1)
+    for backend in ("xla", "pallas"):
+        cfg = _lio_small_cfg(cfgmod, backend)
+        packets = {d: _imu_packets(gt, cfg.imu.max_samples_per_scan, d) for d in (dev, "cpu")}
+        states = {d: lio.init_state(cfg, d) for d in (dev, "cpu")}
+        worst, used = 0.0, []
+        _common.reset_launches()
+        for i in range(n):
+            pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[min(i + 1, n - 1)], 0.1,
+                                                     1500, 0.5, 30.0, noise=0.01, seed=i)
+            poses = {}
+            for d in (dev, "cpu"):
+                raw = pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048,
+                                    device=d)
+                states[d], out = lio.step_donated(states[d], preprocess_scan(raw, cfg.lidar),
+                                                  packets[d][i], cfg)
+                poses[d] = out.pose.cpu().numpy()
+            used.append(bool(out.used_imu))
+            worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
+        launches = dict(_common.LAUNCHES)
+        print(f"small LIO drive ({backend}): card vs CPU max|d pose| {worst:.3e} (tol 1e-4); "
+              f"used_imu {used}; launches {launches}")
+        _require(worst <= 1e-4, f"small LIO drive ({backend}): card and CPU poses disagree")
+        _require(sum(used) >= n - 3, f"small LIO drive ({backend}): the IMU branch ran "
+                 f"{sum(used)} times")
+        if backend == "pallas":
+            _require(launches["pose_pre"] == launches["pose_post"] == n,
+                     "small LIO drive: K2 / K3 did not run once per scan")
+        else:
+            _require(not any(launches.values()), "small LIO drive (xla) launched a kernel")
+
+
+def lio_cfg(cfg):
+    """bench.py:_bench_lio's deployment: the HDL-64E fast config with a
+    16-sample IMU packet, a 2-pose trail and the ICP-tuned pose noise."""
+    return cfg.replace(
+        imu=dataclasses.replace(cfg.imu, max_samples_per_scan=LIO_IMU_CAP),
+        ekf=dataclasses.replace(cfg.ekf, lidar_pose_trail=2, lidar_pos_noise=0.02,
+                                lidar_ori_noise=0.005),
+    )
+
+
+def lio_slice_phase(dev, cfg, raws, gt):
+    """bench.py:_bench_lio on the card: 120 HDL-64E scans with 100 Hz IMU
+    packets through lio.step_donated, eviction and conditional compaction
+    every 10 scans. Host reads counted over scans 0-19; launch counters
+    zeroed just before the timed 120-scan run and read just after."""
+    import warnings
+
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import lio
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
+
+    cfg = lio_cfg(cfg)
+    body = cfg.replace(map=dataclasses.replace(cfg.map, auto_evict=False, auto_rebuild=False))
+    cap = cfg.map.capacity
+    packets = _imu_packets(gt, LIO_IMU_CAP, dev)
+
+    def run(n_scans, count_reads=False):
+        state = lio.init_state(cfg, dev)
+        outs, ms = [], []
+        torch.cuda.synchronize()
+        if count_reads:  # the steps' own host reads, not the set-up's
+            torch.cuda.set_sync_debug_mode("warn")
+        wall0 = time.perf_counter()
+        try:
+            for i in range(n_scans):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                state, out = lio.step_donated(state, preprocess_scan(raws[i], body.lidar),
+                                              packets[i], body)
+                if (i + 1) % BLOCK == 0:
+                    m = voxel_map.evict_far(state.odo.map, state.odo.pose[:3, 3], cfg.map,
+                                            inplace=True)
+                    if bool((m.next_slot > cap - cap // 4) & (m.tombstones > cap // 16)):
+                        m = voxel_map.rebuild(m, cfg.map)
+                    state = state._replace(odo=state.odo._replace(map=m))
+                ev1.record()
+                outs.append((out.pose, out.icp_iterations, out.imu_initialized, out.used_imu))
+                ms.append((ev0, ev1))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall0
+        step_ms = np.array([a.elapsed_time(b) for a, b in ms])
+        poses, iters, inited, used = (torch.stack(x).cpu().numpy() for x in zip(*outs))
+        return state, poses, iters, inited, used, wall, step_ms
+
+    run(3)  # warm-up on a throwaway state
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(20, count_reads=True)
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    _common.reset_launches()
+    state, poses, iters, inited, used, wall, step_ms = run(N_SCANS)
+    launches = dict(_common.LAUNCHES)
+    _require(np.isfinite(poses).all(), "LIO slice: non-finite pose")
+    ate = _ate(poses, gt, shift=1.0)
+    init_scan = int(np.argmax(inited)) if inited.any() else -1
+    print(f"LIO slice: {N_SCANS / wall:.2f} scans/s  p50 {np.percentile(step_ms, 50):.3f} ms  "
+          f"p95 {np.percentile(step_ms, 95):.3f} ms per scan (CUDA events)")
+    print(f"LIO slice: ICP iterations mean {iters.mean():.2f} max {iters.max()} (JAX 6.57 / 28, "
+          f"BENCH_r05)  imu_initialized from scan {init_scan}  used_imu on {int(used.sum())} "
+          f"scans  map voxels {int(voxel_map.num_voxels(state.odo.map))}  launches {launches}")
+    print(f"LIO slice: host reads per scan {sum(sites.values()) / 20:.2f} over scans 0-19 "
+          f"(sync debug mode), by call site {dict(sites.most_common(8))}")
+    print(f"LIO slice: ATE {ate:.4f} m (scan end, shift 1.0; JAX 0.2075, BENCH_r05; limit "
+          f"{LIO_ATE_LIMIT_M})")
+    _require(init_scan >= 0, "LIO slice: the IMU static initialization never completed")
+    _require(bool(used[init_scan + 1:].all()), "LIO slice: a scan after init skipped the IMU")
+    _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
+             "LIO slice: K2 / K3 did not run once per scan")
+    _require(launches["fused_gn_carry"] > 0, "LIO slice: K1 never launched")
+    _require(ate <= LIO_ATE_LIMIT_M, f"LIO slice: ATE {ate:.4f} m above {LIO_ATE_LIMIT_M}")
+
+
 def main() -> int:
     import torch
 
@@ -983,10 +1208,15 @@ def main() -> int:
     cfg64 = bench_cfg(cfgmod, POINTS_PER_SCAN, gn_backend="xla")
     kernels = (kernel_phase(dev, cfg) + batched_kernel_phase(dev, cfg, cfgmod)
                + [nn_kernel_phase(dev)])
+    probe_kernels, probe_launches = probe_phase(dev)
+    kernels += probe_kernels
     small_drive_phase(dev)
     small_classic_phase(dev)
+    small_lio_phase(dev)
     raws, gt = render_hdl_drive(dev)
     launches = slice_phase(dev, cfg, raws, gt)
+    launches.update(probe_launches)
+    lio_slice_phase(dev, cfg, raws, gt)
     state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
     launches["nn_bruteforce"] = nn_on_path_phase(dev, cfg64, state64, out64)
     del state64, out64

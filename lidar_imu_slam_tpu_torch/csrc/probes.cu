@@ -1,0 +1,330 @@
+// The measurement probes P1-P4: two gathers (take_rows, take_lanes) and an
+// f32 fused Gauss-Newton prototype (gn_proto).
+//
+// Replaces: the JAX package's tools/ probes, Pallas kernels that ask what
+// Mosaic lowers and at what cost on a TPU:
+//   * take_rows  <- tools/exp_pallas.py:run_take (body k_take, jnp.take of
+//                   table rows) and tools/exp_gather2.py:probe (bodies k_taa,
+//                   take_along_axis on axis 0, and k_i32, the i32 table with
+//                   an in-kernel broadcast of an (N, 1) index);
+//   * take_lanes <- tools/exp_pallas.py:run_lane (body k_lane,
+//                   take_along_axis on axis 1);
+//   * gn_proto   <- tools/exp_pallas.py:run (body _gn_kernel): n_inner
+//                   iterations of nearest candidate + Geman-McClure weights +
+//                   16 weighted sums + unrolled 6x6 Cholesky + Rodrigues exp
+//                   + left compose, all f32.
+//
+// What bounds them on the card: bytes. take_rows at (2048, 512) moves 8 MB
+// (index, gathered rows, output), about 2.5 us at 3.35 TB/s; take_lanes
+// 0.2 MB. One thread per output element, consecutive threads on
+// consecutive columns, so every index load, table load and store of a warp
+// is one coalesced 128-byte transaction (take_lanes' table loads are
+// scattered within a 32 KB row, which stays in L1/L2). gn_proto reads its
+// 3.9 MB of candidates once per iteration; its design is the simple one of
+// K1: ONE block of 1024 threads strides over the queries, each thread keeps
+// 16 f32 partial sums (and the correspondence count), a warp-shuffle +
+// shared-memory tree reduces them, and thread 0 solves, exponentiates and
+// composes in f32 and hands the carried pose to the block through shared
+// memory. One block reads through one SM: far above the byte bound, as K1.
+//
+// Rounding: every f32 step of gn_proto's per-query work and of the solve is
+// rounded as written (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn /
+// __fsqrt_rn: no FMA contraction), in the JAX kernel's operation order, so
+// the kernel differs from the plain PyTorch version only by the order of
+// the 17 block sums. Indices of the gathers are clamped into range (the
+// probes' indices are in range; the plain versions clamp the same way).
+//
+// Layouts: take_rows table (C, W), idx (N, W) or (N, 1) (idx_cols = W or
+// 1), out (N, W); take_lanes table (R, C), idx (R, N), out (R, N), idx i32.
+// gn_proto q (3, NQ) f32, qm (NQ,) bool as bytes, cand (3, NC, NQ) f32,
+// scal (2,) f32 = [kth, maxd2], out (13,) f32 = [R row-major 9, t 3, conv].
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kGatherThreads = 256;
+constexpr int kGnThreads = 1024;
+constexpr int kSums = 17;  // 16 weighted sums + the correspondence count
+
+template <typename T>
+__global__ void take_rows_kernel(const T* __restrict__ table, const int* __restrict__ idx,
+                                 int c, int w, int idx_cols, long long total,
+                                 T* __restrict__ out) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long i = e / w;
+    const int j = (int)(e - i * w);
+    int r = idx[i * idx_cols + (idx_cols == 1 ? 0 : j)];
+    r = min(max(r, 0), c - 1);
+    out[e] = table[(long long)r * w + j];
+  }
+}
+
+__global__ void take_lanes_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                                  int c, int n, long long total, float* __restrict__ out) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long r = e / n;
+    const int col = min(max(idx[e], 0), c - 1);
+    out[e] = table[r * c + col];
+  }
+}
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dv(float a, float b) { return __fdiv_rn(a, b); }
+// jnp.maximum / torch.maximum: NaN if either side is NaN
+__device__ __forceinline__ float maxn(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+
+// thread 0: one GN update from the 17 sums; c = the 13-float carry
+// [R 9 | t 3 | conv], updated in place (exp_pallas.py:164-260)
+__device__ void gn_proto_update(const float* s, float* c) {
+  const float sw = s[0], Sx = s[1], Sy = s[2], Sz = s[3];
+  const float sxx = s[4], syy = s[5], szz = s[6], sxy = s[7], sxz = s[8], syz = s[9];
+  const float trx = s[10], try_ = s[11], trz = s[12];
+  const float bxs = s[13], bys = s[14], bzs = s[15], ncorr = s[16];
+  const float A[6][6] = {
+      {sw, 0.f, 0.f, 0.f, Sz, -Sy},
+      {0.f, sw, 0.f, -Sz, 0.f, Sx},
+      {0.f, 0.f, sw, Sy, -Sx, 0.f},
+      {0.f, -Sz, Sy, add(syy, szz), -sxy, -sxz},
+      {Sz, 0.f, -Sx, -sxy, add(sxx, szz), -syz},
+      {-Sy, Sx, 0.f, -sxz, -syz, add(sxx, syy)},
+  };
+  const float b[6] = {-trx, -try_, -trz, -bxs, -bys, -bzs};
+  const float dmax = maxn(maxn(maxn(A[0][0], A[3][3]), maxn(A[4][4], A[5][5])), 1.f);
+  const float ridge = mul((float)1e-7, dmax);
+  float L[6][6];
+#pragma unroll
+  for (int jj = 0; jj < 6; ++jj) {
+    float d = add(A[jj][jj], ridge);
+#pragma unroll
+    for (int kk = 0; kk < jj; ++kk) d = sub(d, mul(L[jj][kk], L[jj][kk]));
+    L[jj][jj] = __fsqrt_rn(maxn(d, (float)1e-20));
+    const float inv = dv(1.f, L[jj][jj]);
+#pragma unroll
+    for (int ii = jj + 1; ii < 6; ++ii) {
+      float t = A[ii][jj];
+#pragma unroll
+      for (int kk = 0; kk < jj; ++kk) t = sub(t, mul(L[ii][kk], L[jj][kk]));
+      L[ii][jj] = mul(t, inv);
+    }
+  }
+  float y[6], xi[6];
+#pragma unroll
+  for (int ii = 0; ii < 6; ++ii) {
+    float acc = b[ii];
+#pragma unroll
+    for (int kk = 0; kk < ii; ++kk) acc = sub(acc, mul(L[ii][kk], y[kk]));
+    y[ii] = dv(acc, L[ii][ii]);
+  }
+#pragma unroll
+  for (int ii = 5; ii >= 0; --ii) {
+    float acc = y[ii];
+#pragma unroll
+    for (int kk = ii + 1; kk < 6; ++kk) acc = sub(acc, mul(L[kk][ii], xi[kk]));
+    xi[ii] = dv(acc, L[ii][ii]);
+  }
+
+  float vx = xi[0], vy = xi[1], vz = xi[2], ox = xi[3], oy = xi[4], oz = xi[5];
+  const bool ok = ncorr >= 20.f;
+  const float step2 = add(add(add(add(add(mul(vx, vx), mul(vy, vy)), mul(vz, vz)), mul(ox, ox)),
+                              mul(oy, oy)),
+                          mul(oz, oz));
+  const float conv = c[12];
+  const float scale = (ok && conv < 0.5f) ? 1.f : 0.f;
+  vx = mul(vx, scale); vy = mul(vy, scale); vz = mul(vz, scale);
+  ox = mul(ox, scale); oy = mul(oy, scale); oz = mul(oz, scale);
+
+  // Rodrigues (f32): R = I + a W + b2 W^2, left Jacobian with (b2, c3)
+  const float sq = add(add(mul(ox, ox), mul(oy, oy)), mul(oz, oz));
+  const float sqc = maxn(sq, (float)1e-30);
+  const float th = __fsqrt_rn(sqc);
+  const bool small = sq < (float)1e-12;
+  const float a = small ? sub(1.f, dv(sq, 6.f)) : dv(sinf(th), th);
+  const float b2 = small ? sub(0.5f, dv(sq, 24.f)) : dv(sub(1.f, cosf(th)), sqc);
+  const float c3 = small ? (float)(1.0 / 6.0) : dv(sub(1.f, a), sqc);
+  const float e00 = add(1.f, mul(b2, sub(mul(ox, ox), sq)));
+  const float e01 = add(mul(a, -oz), mul(mul(b2, ox), oy));
+  const float e02 = add(mul(a, oy), mul(mul(b2, ox), oz));
+  const float e10 = add(mul(a, oz), mul(mul(b2, ox), oy));
+  const float e11 = add(1.f, mul(b2, sub(mul(oy, oy), sq)));
+  const float e12 = add(mul(a, -ox), mul(mul(b2, oy), oz));
+  const float e20 = add(mul(a, -oy), mul(mul(b2, ox), oz));
+  const float e21 = add(mul(a, ox), mul(mul(b2, oy), oz));
+  const float e22 = add(1.f, mul(b2, sub(mul(oz, oz), sq)));
+  const float v00 = add(1.f, mul(c3, sub(mul(ox, ox), sq)));
+  const float v01 = add(mul(b2, -oz), mul(mul(c3, ox), oy));
+  const float v02 = add(mul(b2, oy), mul(mul(c3, ox), oz));
+  const float v10 = add(mul(b2, oz), mul(mul(c3, ox), oy));
+  const float v11 = add(1.f, mul(c3, sub(mul(oy, oy), sq)));
+  const float v12 = add(mul(b2, -ox), mul(mul(c3, oy), oz));
+  const float v20 = add(mul(b2, -oy), mul(mul(c3, ox), oz));
+  const float v21 = add(mul(b2, ox), mul(mul(c3, oy), oz));
+  const float v22 = add(1.f, mul(c3, sub(mul(oz, oz), sq)));
+  const float dt0 = add(add(mul(v00, vx), mul(v01, vy)), mul(v02, vz));
+  const float dt1 = add(add(mul(v10, vx), mul(v11, vy)), mul(v12, vz));
+  const float dt2 = add(add(mul(v20, vx), mul(v21, vy)), mul(v22, vz));
+
+  // compose: new = E @ old
+  const float E[3][3] = {{e00, e01, e02}, {e10, e11, e12}, {e20, e21, e22}};
+  const float dt[3] = {dt0, dt1, dt2};
+  float n[12];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      n[3 * i + j] = add(add(mul(E[i][0], c[j]), mul(E[i][1], c[3 + j])), mul(E[i][2], c[6 + j]));
+    n[9 + i] = add(add(add(mul(E[i][0], c[9]), mul(E[i][1], c[10])), mul(E[i][2], c[11])), dt[i]);
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) c[k] = n[k];
+  c[12] = (!ok || __fsqrt_rn(step2) < (float)5e-4) ? 1.f : conv;
+}
+
+__global__ void __launch_bounds__(kGnThreads)
+gn_proto_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
+                const float* __restrict__ cand, const float* __restrict__ scal, int nq, int nc,
+                int n_inner, float* __restrict__ out) {
+  __shared__ float red[kGnThreads / 32][kSums];
+  __shared__ float carry[13];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float kth = scal[0], maxd2 = scal[1];
+  const size_t plane = (size_t)nc * nq;
+  if (tid < 13) carry[tid] = (tid == 0 || tid == 4 || tid == 8) ? 1.f : 0.f;
+  __syncthreads();
+  for (int it = 0; it < n_inner; ++it) {
+    const float r00 = carry[0], r01 = carry[1], r02 = carry[2];
+    const float r10 = carry[3], r11 = carry[4], r12 = carry[5];
+    const float r20 = carry[6], r21 = carry[7], r22 = carry[8];
+    const float t0 = carry[9], t1 = carry[10], t2 = carry[11];
+    float acc[kSums];
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
+    for (int i = tid; i < nq; i += kGnThreads) {
+      const float qx = q[i], qy = q[nq + i], qz = q[2 * (size_t)nq + i];
+      const float wx = add(add(add(mul(r00, qx), mul(r01, qy)), mul(r02, qz)), t0);
+      const float wy = add(add(add(mul(r10, qx), mul(r11, qy)), mul(r12, qz)), t1);
+      const float wz = add(add(add(mul(r20, qx), mul(r21, qy)), mul(r22, qz)), t2);
+      float best = INFINITY, bx = 0.f, by = 0.f, bz = 0.f;
+      for (int j = 0; j < nc; ++j) {
+        const size_t o = (size_t)j * nq + i;
+        const float cx = cand[o], cy = cand[plane + o], cz = cand[2 * plane + o];
+        const float dx = sub(cx, wx), dy = sub(cy, wy), dz = sub(cz, wz);
+        const float d2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
+        if (d2 < best) {
+          best = d2;
+          bx = cx;
+          by = cy;
+          bz = cz;
+        }
+      }
+      if (qm[i] && best < maxd2) {  // non-correspondences add exact zeros
+        const float rx = sub(wx, bx), ry = sub(wy, by), rz = sub(wz, bz);
+        const float res2 = add(add(mul(rx, rx), mul(ry, ry)), mul(rz, rz));
+        const float den = add(kth, res2);
+        const float w = dv(mul(kth, kth), mul(den, den));
+        const float wsx = mul(w, wx), wsy = mul(w, wy), wsz = mul(w, wz);
+        acc[0] = add(acc[0], w);
+        acc[1] = add(acc[1], wsx);
+        acc[2] = add(acc[2], wsy);
+        acc[3] = add(acc[3], wsz);
+        acc[4] = add(acc[4], mul(wsx, wx));
+        acc[5] = add(acc[5], mul(wsy, wy));
+        acc[6] = add(acc[6], mul(wsz, wz));
+        acc[7] = add(acc[7], mul(wsx, wy));
+        acc[8] = add(acc[8], mul(wsx, wz));
+        acc[9] = add(acc[9], mul(wsy, wz));
+        acc[10] = add(acc[10], mul(w, rx));
+        acc[11] = add(acc[11], mul(w, ry));
+        acc[12] = add(acc[12], mul(w, rz));
+        acc[13] = add(acc[13], sub(mul(wsy, rz), mul(wsz, ry)));
+        acc[14] = add(acc[14], sub(mul(wsz, rx), mul(wsx, rz)));
+        acc[15] = add(acc[15], sub(mul(wsx, ry), mul(wsy, rx)));
+        acc[16] = add(acc[16], 1.f);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) {
+      float v = acc[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v = add(v, __shfl_down_sync(0xffffffffu, v, off));
+      if (lane == 0) red[warp][k] = v;
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) {
+        float v = red[lane][k];  // kGnThreads / 32 == 32 partials, one per lane
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v = add(v, __shfl_down_sync(0xffffffffu, v, off));
+        if (lane == 0) red[0][k] = v;
+      }
+      __syncwarp();
+      if (lane == 0) gn_proto_update(red[0], carry);
+    }
+    __syncthreads();
+  }
+  if (tid < 13) out[tid] = carry[tid];
+}
+
+int grid_for(long long total) {  // grid-stride loops: at most 8 x 65535 blocks
+  const long long blocks = (total + kGatherThreads - 1) / kGatherThreads;
+  return (int)(blocks < 65535LL * 8 ? blocks : 65535LL * 8);
+}
+
+template <typename T>
+int launch_take_rows(const void* table, const void* idx, int c, int w, int n, int idx_cols,
+                     void* out, cudaStream_t st) {
+  const long long total = (long long)n * w;
+  if (total <= 0) return 0;
+  const int blocks = grid_for(total);
+  take_rows_kernel<T><<<blocks, kGatherThreads, 0, st>>>(
+      static_cast<const T*>(table), static_cast<const int*>(idx), c, w, idx_cols, total,
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+static_assert(kGnThreads / 32 == 32, "the second reduction stage takes one partial per lane");
+
+// out[i, j] = table[clamp(idx[i, j or 0]), j]; elem_code 0 = f32, 1 = i32
+extern "C" int lis_take_rows(void* table, void* idx, int c, int w, int n, int idx_cols,
+                             int elem_code, void* out, void* stream) {
+  if (c <= 0 || (idx_cols != 1 && idx_cols != w)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elem_code == 0) return launch_take_rows<float>(table, idx, c, w, n, idx_cols, out, st);
+  if (elem_code == 1) return launch_take_rows<int>(table, idx, c, w, n, idx_cols, out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[r, j] = table[r, clamp(idx[r, j])]; table (R, C) f32, idx / out (R, N)
+extern "C" int lis_take_lanes(void* table, void* idx, int r, int c, int n, void* out,
+                              void* stream) {
+  const long long total = (long long)r * n;
+  if (total <= 0) return 0;
+  if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = grid_for(total);
+  take_lanes_kernel<<<blocks, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int*>(idx), c, n, total,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n_inner fused GN iterations from the identity; out (13,) f32
+extern "C" int lis_gn_proto(void* q, void* qm, void* cand, void* scal, int nq, int nc,
+                            int n_inner, void* out, void* stream) {
+  if (nq <= 0 || nc <= 0 || n_inner < 0) return static_cast<int>(cudaErrorInvalidValue);
+  gn_proto_kernel<<<1, kGnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(qm),
+      static_cast<const float*>(cand), static_cast<const float*>(scal), nq, nc, n_inner,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

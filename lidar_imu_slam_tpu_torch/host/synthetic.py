@@ -4,13 +4,14 @@ The deterministic "fake backend": a known trajectory through a known world,
 producing scans whose recovered poses can be asserted against ground truth.
 Same functions, same random streams as the JAX package's `host/synthetic.py`
 (the parity tests check equality from the same seeds), ported so the port
-never imports the JAX package. The IMU stream generator waits for the LIO
-slice.
+never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..config import GRAVITY
 
 
 def make_world(
@@ -171,6 +172,61 @@ def render_scan_rolling(
         out = c * d_a - s * kxd + (1.0 - c) * kdd * k[None]
     out += rng.normal(0, noise, out.shape)
     return out, tau * scan_duration
+
+
+def make_imu_stream(
+    poses: np.ndarray,
+    scan_dt: float,
+    imu_rate: float = 200.0,
+    accel_noise: float = 0.0,
+    gyro_noise: float = 0.0,
+    seed: int = 0,
+):
+    """Ideal IMU samples consistent with the pose sequence.
+
+    Returns (times (M,), gyro (M,3), accel (M,3)) — accel includes gravity
+    reaction (specific force), in the body frame, NED-style +g when at rest.
+    """
+    rng = np.random.default_rng(seed)
+    n = len(poses)
+    total_t = (n - 1) * scan_dt
+    m = int(total_t * imu_rate) + 1
+    times = np.arange(m) / imu_rate
+
+    # finite-difference world velocities/accelerations of the pose spline
+    pos = poses[:, :3, 3]
+    pose_times = np.arange(n) * scan_dt
+    vel = np.gradient(pos, pose_times, axis=0)
+    acc = np.gradient(vel, pose_times, axis=0)
+
+    gyro = np.zeros((m, 3))
+    accel = np.zeros((m, 3))
+    g_world = np.array([0.0, 0.0, -GRAVITY])
+    for i, t in enumerate(times):
+        k = min(int(t / scan_dt), n - 2)
+        a = t / scan_dt - k
+        R0, R1 = poses[k, :3, :3], poses[k + 1, :3, :3]
+        # body rate from relative rotation
+        ang = _log_so3(R0.T @ R1) / scan_dt
+        a_w = (1 - a) * acc[k] + a * acc[min(k + 1, n - 1)]
+        # piecewise-constant orientation R0 is fine for tests
+        accel[i] = R0.T @ (a_w - g_world) + rng.normal(0, accel_noise, 3)
+        gyro[i] = ang + rng.normal(0, gyro_noise, 3)
+    return times, gyro, accel
+
+
+def imu_packets(times: np.ndarray, gyro: np.ndarray, accel: np.ndarray, n_scans: int,
+                scan_dt: float = 0.1, max_samples: int = 10, time_offset: float = 1e-3):
+    """Split an IMU stream into per-scan packets as bench.py:_bench_lio does:
+    packet i holds the samples in [scan_dt i, scan_dt (i + 1)), at most
+    `max_samples`, their times shifted by `time_offset` s. Returns n_scans
+    (times, gyro, accel) triples."""
+    packets = []
+    for i in range(n_scans):
+        lo, hi = np.searchsorted(times, (i * scan_dt, (i + 1) * scan_dt))
+        hi = min(hi, lo + max_samples)
+        packets.append((times[lo:hi] + time_offset, gyro[lo:hi], accel[lo:hi]))
+    return packets
 
 
 def _log_so3(R: np.ndarray) -> np.ndarray:

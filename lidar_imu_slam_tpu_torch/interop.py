@@ -8,6 +8,11 @@ the JAX field names works (a NamedTuple of numpy arrays, for example).
 
 Batched states (`parallel.streams`) carry a leading stream axis S on every
 leaf, as the JAX package's `init_batched_state` makes them.
+
+The LIO state (`models.lio.LioState`: the odometry state, the EKF state,
+the IMU initialization and the LIO bookkeeping) and the IMU packet cross
+the same way (`lio_state_from_numpy`, `lio_state_to_numpy`,
+`imu_packet_from_numpy`).
 """
 
 from __future__ import annotations
@@ -15,7 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.ekf import EkfState, ImuPacket
 from .models.kiss_icp import KissState
+from .models.lio import LioState
+from .ops.imu import ImuInitState
 from .ops.icp import ThresholdState
 from .ops.voxel_map import VoxelMap
 
@@ -82,3 +90,34 @@ def batched_kiss_state_to_numpy(state: KissState) -> KissState:
     """The port's batched state with numpy leaves in the JAX field order."""
     _stream_count(state)
     return kiss_state_to_numpy(state)
+
+
+def _plain(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True), device=device)
+
+
+def imu_packet_from_numpy(tree, device: torch.device | str = "cuda") -> ImuPacket:
+    """Port IMU packet from the numpy leaves of a JAX ImuPacket."""
+    return ImuPacket(*(_plain(getattr(tree, f), device) for f in ImuPacket._fields))
+
+
+def lio_state_from_numpy(tree, device: torch.device | str = "cuda") -> LioState:
+    """Port LIO state from the numpy leaves of a JAX LioState."""
+    rest = {f: _plain(getattr(tree, f), device) for f in LioState._fields[3:]}
+    return LioState(
+        odo=kiss_state_from_numpy(tree.odo, device),
+        ekf=EkfState(*(_plain(getattr(tree.ekf, f), device) for f in EkfState._fields)),
+        imu_init=ImuInitState(*(_plain(getattr(tree.imu_init, f), device)
+                                for f in ImuInitState._fields)),
+        **rest,
+    )
+
+
+def lio_state_to_numpy(state: LioState) -> LioState:
+    """The port's LIO state with numpy leaves, in the JAX field order."""
+    return LioState(
+        odo=kiss_state_to_numpy(state.odo),
+        ekf=EkfState(*(_n(t) for t in state.ekf)),
+        imu_init=ImuInitState(*(_n(t) for t in state.imu_init)),
+        **{f: _n(getattr(state, f)) for f in LioState._fields[3:]},
+    )

@@ -1,0 +1,832 @@
+"""Quaternion error-state EKF, 30-dim inner state + pose trail (counterpart
+of the JAX package's `models/ekf.py`; reference src/kalman/ekf.cpp).
+
+State layout (reference ekf.hpp:14-54):
+  [0:3] position   [3:6] velocity   [6:10] orientation quat (w, x, y, z)
+  [10:13] gyro bias   [13:16] acc bias   [16:19] acc scale   [19:22] gravity
+  [22:25] imu-lidar translation   [25:29] imu-lidar quat   [29] time shift
+  [30:] a trail of `lidar_pose_trail` 7-dim poses (170 dims at trail 20).
+
+Everything is f64 and runs on the state's device. What differs from the
+JAX module, and why:
+* `lax.cond` sites (the predict skip, the ZUPT gate, the stationary
+  branch) compute both sides and select with `torch.where`: no host read,
+  and a NaN on the side not taken (a Cholesky of a matrix that is not
+  positive definite) cannot reach the result.
+* The unrolled Cholesky (`chol_solve_unrolled`) is `cholesky_ex` with two
+  triangular solves; where the matrix is not positive definite the
+  solution is NaN, as the unrolled factor's sqrt of a negative pivot gives.
+* `lax.associative_scan` over the 4x4 quaternion propagators and over the
+  (Phi, Sigma) transition pairs is a log-depth Hillis-Steele scan: another
+  order of products, so results move at ~1e-15.
+* The batched deskew picks each point's trail row by a gather of its
+  interval index in place of the JAX one-hot sum (exact for finite rows),
+  and zeroes the masked IMU pairs before they enter the propagators (the
+  JAX form relies on finite padding; 0 * inf would be NaN).
+* `_sincos_poly`, `matmul_nowhile` and `precise.exp_` lower f64 on a TPU:
+  here torch.sin / cos / exp and plain matmuls.
+Constant matrices are built once per device (`_consts`): a Python scalar
+written into a CUDA tensor is a host copy that waits for the device.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import GRAVITY, EkfConfig
+from ..ops import lie
+
+F64 = torch.float64
+F32 = torch.float32
+
+# state layout offsets (reference ekf.hpp:32-54)
+POS, VEL, ORI, BGA, BAA, BAT, GRAV_I, PIL, RIL, SFT = (
+    0, 3, 6, 10, 13, 16, 19, 22, 25, 29,
+)
+INNER = 30
+POSE_DIM = 7
+# process noise layout (reference ekf.hpp:56-60)
+Q_ACC, Q_GYRO, Q_BGA, Q_BAA, Q_DIM = 0, 3, 6, 9, 12
+
+
+class EkfState(NamedTuple):
+    m: torch.Tensor  # (D,) f64 mean
+    P: torch.Tensor  # (D, D) f64 covariance
+    time: torch.Tensor  # () f64 — seconds since first sample
+    first_sample_t: torch.Tensor  # () f64
+    prev_sample_t: torch.Tensor  # () f64
+    first_sample: torch.Tensor  # () bool
+    zupt_time: torch.Tensor  # () f64 last ZUPT (time-origin relative)
+    was_stationary: torch.Tensor  # () bool
+    augment_count: torch.Tensor  # () i32
+    last_lidar_end_time: torch.Tensor  # () f64
+    orientation_initialized: torch.Tensor  # () bool
+
+
+class ImuPacket(NamedTuple):
+    """Padded per-scan IMU sub-buffer. Element 0 must be the previous
+    packet's last sample (the reference prepends mc_tracker->last_imu,
+    ekf.cpp:295)."""
+
+    time: torch.Tensor  # (M,) f64 absolute seconds
+    gyro: torch.Tensor  # (M, 3) f64
+    acc: torch.Tensor  # (M, 3) f64
+    mask: torch.Tensor  # (M,) bool
+
+
+def select(cond: torch.Tensor, a, b):
+    """Field-wise torch.where(cond, a, b) over two NamedTuples of tensors."""
+    return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+@functools.lru_cache(maxsize=None)
+def _consts_cached(cfg: EkfConfig, device: str) -> dict:
+    d = cfg.state_dim
+    ns = cfg.noise_scale * cfg.noise_scale
+    c = {}
+    c["eye3"], c["eye4"] = np.eye(3), np.eye(4)
+    c["up"] = np.array([0.0, 0.0, 1.0])
+    c["ori_block"] = np.diag([1.0, 1.0, 1.0, 0.0])
+    # d(quat)/d(gyro noise) structure at h = 1 (ekf.cpp:554-560)
+    c["dS"] = np.array([
+        [[0, 1, 0, 0], [-1, 0, 0, 0], [0, 0, 0, 1], [0, 0, -1, 0]],
+        [[0, 0, 1, 0], [0, 0, 0, -1], [-1, 0, 0, 0], [0, 1, 0, 0]],
+        [[0, 0, 0, 1], [0, 0, 1, 0], [0, -1, 0, 0], [-1, 0, 0, 0]],
+    ], np.float64)
+    # ZUPT: H selects the velocity of m[:6]
+    h = np.zeros((3, VEL + 3))
+    h[:, VEL:VEL + 3] = np.eye(3)
+    c["H_zupt"] = h
+    c["R_zupt"] = np.eye(3) * cfg.visual_zupt_r * ns
+    # trail augmentation (visAugH, ekf.cpp:161-177)
+    h = np.zeros((POSE_DIM, d))
+    for i in range(3):
+        h[i, POS + i], h[i, INNER + i] = 1.0, -1.0
+    for i in range(4):
+        h[3 + i, ORI + i], h[3 + i, INNER + 3 + i] = 1.0, -1.0
+    c["H_aug"] = h
+    c["R_aug"] = np.eye(POSE_DIM) * 1e-9 * ns
+    q = np.zeros(d)
+    q[INNER:INNER + 3] = cfg.init_pos_trail_noise ** 2
+    q[INNER + 3:INNER + POSE_DIM] = cfg.init_ori_trail_noise ** 2
+    c["Q_aug"] = np.diag(q * ns)
+    c["eye_d"] = np.eye(d)
+    # lidar pose measurement: H selects POS and ORI of m[:10]
+    h = np.zeros((7, ORI + 4))
+    for i in range(3):
+        h[i, POS + i] = 1.0
+    for i in range(4):
+        h[3 + i, ORI + i] = 1.0
+    c["H_pose"] = h
+    out = {k: torch.as_tensor(v, dtype=F64, device=device) for k, v in c.items()}
+    # index maps of the trail shifts (-1: the slot is zeroed)
+    aug = np.arange(d)
+    for i in range(INNER, d):
+        aug[i] = i - POSE_DIM if i - POSE_DIM >= INNER else -1
+    aug[INNER:INNER + POSE_DIM] = -1
+    unaug = np.arange(d)
+    for i in range(INNER, d):
+        unaug[i] = i + POSE_DIM if i + POSE_DIM < d else -1
+    for name, perm in (("aug", aug), ("unaug", unaug)):
+        p = torch.as_tensor(perm, device=device)
+        out[f"{name}_idx"] = torch.clamp(p, min=0)
+        out[f"{name}_keep"] = (p >= 0).to(F64)
+    return out
+
+
+def _consts(cfg: EkfConfig, device: torch.device) -> dict:
+    return _consts_cached(cfg, str(torch.device(device)))
+
+
+def chol_solve(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """X with S X = B for SPD S (n, n), B (n, k); NaN everywhere when S is
+    not positive definite (the JAX unrolled factor's sqrt of a negative
+    pivot). No host sync: `cholesky_ex` reports failure in a device tensor."""
+    L, info = torch.linalg.cholesky_ex(S)
+    y = torch.linalg.solve_triangular(L, B, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
+
+
+def _process_covariance(cfg: EkfConfig, noise_scale: float, device) -> torch.Tensor:
+    """Initial covariance (reference initialize_process_covariance,
+    ekf.cpp:580-617)."""
+    diag = np.zeros(cfg.state_dim)
+    diag[POS:POS + 3] = cfg.init_pos_noise ** 2
+    diag[VEL:VEL + 3] = cfg.init_vel_noise ** 2
+    diag[ORI:ORI + 4] = 1.0
+    diag[BGA:BGA + 3] = cfg.init_bga_noise ** 2
+    diag[BAA:BAA + 3] = cfg.init_baa_noise ** 2
+    diag[BAT:BAT + 3] = cfg.init_bat_noise ** 2
+    # quirk preserved: the reference seeds the gravity block with the
+    # lidar-imu time noise (ekf.cpp:595)
+    diag[GRAV_I:GRAV_I + 3] = cfg.init_lidar_imu_time_noise ** 2
+    diag[PIL:PIL + 3] = cfg.init_pos_noise ** 2
+    diag[RIL:RIL + 4] = 1.0
+    diag[SFT] = cfg.init_lidar_imu_time_noise ** 2
+    diag[INNER:] = np.tile(
+        np.concatenate([np.full(3, cfg.init_pos_trail_noise ** 2),
+                        np.full(4, cfg.init_ori_trail_noise ** 2)]),
+        cfg.lidar_pose_trail)
+    return torch.as_tensor(np.diag(diag), dtype=F64, device=device) * noise_scale
+
+
+def init(cfg: EkfConfig, device: torch.device | str = "cuda") -> EkfState:
+    m = np.zeros(cfg.state_dim)
+    m[ORI] = m[RIL] = 1.0
+    m[BAT:BAT + 3] = 1.0
+    m[GRAV_I:GRAV_I + 3] = [0.0, 0.0, -GRAVITY]
+    noise_scale = cfg.noise_scale * cfg.noise_scale  # reference ekf.cpp:66
+
+    def scalar(v, dtype=F64):  # a fill on the device, not a host copy
+        return torch.full((), v, dtype=dtype, device=device)
+
+    return EkfState(
+        m=torch.as_tensor(m, dtype=F64, device=device),
+        P=_process_covariance(cfg, noise_scale, device),
+        time=scalar(0.0),
+        first_sample_t=scalar(0.0),
+        prev_sample_t=scalar(-1.0),
+        first_sample=scalar(True, torch.bool),
+        zupt_time=scalar(-1.0),
+        was_stationary=scalar(False, torch.bool),
+        augment_count=scalar(0, torch.int32),
+        last_lidar_end_time=scalar(0.0),
+        orientation_initialized=scalar(False, torch.bool),
+    )
+
+
+def _true_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=torch.bool, device=t.device)
+
+
+def initialize_gravity_alignment(state: EkfState, mean_acc, cfg: EkfConfig) -> EkfState:
+    """Gravity-aligned orientation init (intent of reference ekf.cpp:194-211):
+    R(q) maps world up onto the mean specific force, gravity along world -z
+    with calc_grav's magnitude (imu/frame.cpp:114)."""
+    c = _consts(cfg, state.m.device)
+    calc_grav = -mean_acc / torch.linalg.norm(mean_acc) * GRAVITY
+    q = lie.quat_from_two_vectors(c["up"], mean_acc)
+    m = state.m.clone()
+    m[ORI:ORI + 4] = q
+    m[GRAV_I:GRAV_I + 3] = -c["up"] * torch.linalg.norm(calc_grav)
+    noise_scale = cfg.noise_scale * cfg.noise_scale
+    P = state.P.clone()
+    P[ORI:ORI + 4, ORI:ORI + 4] = c["ori_block"] * (cfg.init_ori_noise ** 2) * noise_scale
+    return state._replace(m=m, P=P, orientation_initialized=_true_like(m))
+
+
+def initialize_from_odometry(state: EkfState, mean_acc, T_wi, vel_world, cfg: EkfConfig,
+                             accel_world=None, window_time=None) -> EkfState:
+    """`initialize_gravity_alignment` for an init that completes IN MOTION,
+    seeded from the running lidar odometry (JAX ekf.py:149, PARITY.md #26):
+    pose from `T_wi`, velocity from the odometry, gravity from the mean
+    specific force (corrected by `accel_world` when given); at rest
+    (|vel| <= 0.25 m/s) exactly the gravity-alignment init, position pinned
+    to the odometry frame. Priors tighten when the init window was >= 1 s."""
+    c = _consts(cfg, state.m.device)
+    moving = torch.linalg.norm(vel_world) > 0.25
+    R_wb = T_wi[:3, :3]
+    mean_dir = mean_acc / torch.linalg.norm(mean_acc)
+    q_align = lie.quat_from_two_vectors(c["up"], mean_acc)
+    q = torch.where(moving, lie.rot_to_quat(R_wb.T), q_align)
+    g_world = torch.where(moving, -(R_wb @ mean_dir) * GRAVITY, -c["up"] * GRAVITY)
+    if accel_world is not None:
+        g_est = accel_world - R_wb @ mean_acc
+        g_norm = torch.linalg.norm(g_est)
+        g_world = torch.where(moving & (g_norm > 0.5 * GRAVITY),
+                              g_est / torch.clamp(g_norm, min=1e-9) * GRAVITY, g_world)
+    m = state.m.clone()
+    m[ORI:ORI + 4] = q
+    m[POS:POS + 3] = T_wi[:3, 3]
+    m[VEL:VEL + 3] = torch.where(moving, vel_world, state.m[VEL:VEL + 3])
+    m[GRAV_I:GRAV_I + 3] = g_world
+    noise_scale = cfg.noise_scale * cfg.noise_scale
+    trusted = moving if window_time is None else moving & (window_time >= 1.0)
+
+    def f64(v):  # a where of two Python floats would be float32
+        return torch.full((), v, dtype=F64, device=m.device)
+
+    ori_var = torch.where(trusted, 0.02 ** 2,
+                          torch.where(moving, 0.2 ** 2, f64(cfg.init_ori_noise ** 2)))
+    P = state.P.clone()
+    P[ORI:ORI + 4, ORI:ORI + 4] = c["ori_block"] * ori_var * noise_scale
+    vidx = torch.arange(VEL, VEL + 3, device=m.device)
+    gidx = torch.arange(GRAV_I, GRAV_I + 3, device=m.device)
+    P[vidx, vidx] = (torch.where(moving, torch.where(trusted, 0.3 ** 2, f64(1.0)),
+                                 state.P[vidx, vidx])
+                     * torch.where(moving, noise_scale, f64(1.0)))
+    P[gidx, gidx] = torch.where(moving, torch.where(trusted, 1.0, f64(9.0)) * noise_scale,
+                                state.P[gidx, gidx])
+    return state._replace(m=m, P=P, orientation_initialized=_true_like(m))
+
+
+def _ou_q(cfg: EkfConfig, dt: torch.Tensor, noise_scale: float) -> torch.Tensor:
+    """Process noise with Ornstein-Uhlenbeck bias scaling (reference
+    ekf.cpp:112-116, 244-263); dt (...) -> (..., 12, 12)."""
+
+    def ou(qc, theta):
+        if theta > 0.0:
+            return qc * (1.0 - torch.exp(-2.0 * dt * theta)) / (2.0 * theta)
+        return torch.full_like(dt, qc)
+
+    def full(v):
+        return torch.full_like(dt, v)
+
+    zero = torch.zeros_like(dt)
+    gyro2, acc2 = cfg.gyro_process_noise ** 2, cfg.acc_process_noise ** 2
+    bga = ou(gyro2, cfg.gyro_process_noise_rev) if cfg.gyro_process_noise > 0.0 else zero
+    baa = ou(acc2, cfg.acc_process_noise_rev) if cfg.acc_process_noise > 0.0 else zero
+    q = torch.stack([full(acc2)] * 3 + [full(gyro2)] * 3 + [bga] * 3 + [baa] * 3, dim=-1)
+    return torch.diag_embed(q) * noise_scale
+
+
+def _bias_decay(dt, rate: float):
+    return torch.exp(-dt * rate) if rate > 0.0 else torch.ones_like(dt)
+
+
+def _propagate_mean(m, A, R, rot_li, trans_li, dt, calc_grav, xa, cfg: EkfConfig):
+    """Mean propagation (reference propagate_state, ekf.cpp:486-519)."""
+    T_ab = m[BAT:BAT + 3] * xa - m[BAA:BAA + 3]
+    prev_quat = m[ORI:ORI + 4]
+    m2 = torch.cat([
+        m[POS:POS + 3] + m[VEL:VEL + 3] * dt,
+        m[VEL:VEL + 3] + (R.T @ T_ab + m[GRAV_I:GRAV_I + 3]) * dt,
+        A @ prev_quat,
+        m[BGA:BGA + 3] * _bias_decay(dt, cfg.gyro_process_noise),
+        m[BAA:BAA + 3] * _bias_decay(dt, cfg.acc_process_noise_rev),
+        m[BAT:BAT + 3],
+        calc_grav,
+        trans_li,
+        lie.rot_to_quat(rot_li),
+        m[SFT:],
+    ])
+    return m2, T_ab, prev_quat
+
+
+def _state_jacobians(T_ab, prev_quat, A, R, dR, xa, dt, dS):
+    """Fx (..., 30, 30) and Fw (..., 30, 12) (reference
+    initialize_state_jacobians, ekf.cpp:521-578), over leading batch dims;
+    with the d(vel)/d(grav) = dt I coupling the reference omits (PARITY.md
+    #27). `dS` is the (3, 4, 4) gyro-noise structure at h = 1."""
+    lead = T_ab.shape[:-1]
+    dev = T_ab.device
+    dtm = dt[..., None, None]
+    eye3 = torch.eye(3, dtype=F64, device=dev)
+    Fx = torch.zeros(lead + (INNER, INNER), dtype=F64, device=dev)
+    Fw = torch.zeros(lead + (INNER, Q_DIM), dtype=F64, device=dev)
+    for blk in (POS, VEL, BGA, BAA, BAT, GRAV_I, PIL):
+        Fx[..., blk:blk + 3, blk:blk + 3] = eye3
+    Fx[..., RIL:RIL + 4, RIL:RIL + 4] = torch.eye(4, dtype=F64, device=dev)
+    Fx[..., SFT, SFT].fill_(1.0)  # a fill: a scalar written to a 0-d view is a host copy
+    Fx[..., POS:POS + 3, VEL:VEL + 3] = eye3 * dtm
+    Fx[..., VEL:VEL + 3, GRAV_I:GRAV_I + 3] = eye3 * dtm
+
+    RT = R.transpose(-1, -2)
+    dv_dq = torch.einsum("...qji,...j->...iq", dR, T_ab) * dtm  # (..., 3, 4)
+    dv_dq = dv_dq @ A
+    Fx[..., VEL:VEL + 3, ORI:ORI + 4] = dv_dq
+    Fx[..., ORI:ORI + 4, ORI:ORI + 4] = A
+    Fw[..., VEL:VEL + 3, Q_ACC:Q_ACC + 3] = RT * dtm
+
+    h = (dt / 2.0)[..., None, None, None]
+    dq_dw = torch.einsum("...ab,...gbc,...c->...ag", A, dS * h, prev_quat)  # (..., 4, 3)
+    Fw[..., ORI:ORI + 4, Q_GYRO:Q_GYRO + 3] = dq_dw
+    Fw[..., BGA:BGA + 3, Q_BGA:Q_BGA + 3] = eye3
+    Fw[..., BAA:BAA + 3, Q_BAA:Q_BAA + 3] = eye3
+
+    dv_dw = dv_dq @ dq_dw
+    Fw[..., VEL:VEL + 3, Q_GYRO:Q_GYRO + 3] = dv_dw
+    Fx[..., VEL:VEL + 3, BGA:BGA + 3] = -dv_dw
+    Fx[..., ORI:ORI + 4, BGA:BGA + 3] = -dq_dw
+    Fx[..., VEL:VEL + 3, BAA:BAA + 3] = -RT * dtm
+    Fx[..., VEL:VEL + 3, BAT:BAT + 3] = RT * xa[..., None, :] * dtm
+    return Fx, Fw
+
+
+def _block_cov_propagate(P, Fx, FwQFw):
+    """P update exploiting the trail's sparsity (reference ekf.cpp:284-289):
+    only the 30x30 block and the 30-wide cross strips change."""
+    P2 = P.clone()
+    FxT = Fx.transpose(-1, -2)
+    P2[:INNER, :INNER] = Fx @ P[:INNER, :INNER] @ FxT + FwQFw
+    P2[INNER:, :INNER] = P[INNER:, :INNER] @ FxT
+    P2[:INNER, INNER:] = Fx @ P[:INNER, INNER:]
+    return P2
+
+
+def _time_update(state: EkfState, t):
+    dt = torch.where(state.first_sample, 0.0, t - state.prev_sample_t)
+    new_time = torch.where(state.first_sample, state.time, t - state.first_sample_t)
+    first_sample_t = torch.where(state.first_sample, t, state.first_sample_t)
+    return dt, dict(time=new_time, first_sample_t=first_sample_t, prev_sample_t=t,
+                    first_sample=torch.zeros_like(state.first_sample))
+
+
+def predict(state: EkfState, t, xg, xa, calc_grav, trans_lidar_imu, rot_lidar_imu,
+            cfg: EkfConfig) -> EkfState:
+    """Forward propagation over one IMU sample (reference EKF::predict,
+    ekf.cpp:214-290); skipped (m, P unchanged) when dt <= 0."""
+    noise_scale = cfg.noise_scale * cfg.noise_scale
+    dt, times = _time_update(state, t)
+    m = state.m
+    Q = _ou_q(cfg, dt, noise_scale)
+    A = lie.quat_propagator(xg - m[BGA:BGA + 3], dt)
+    q_next = A @ m[ORI:ORI + 4]
+    R = lie.quat_to_rot(q_next)
+    dR = lie.dquat_to_rot(q_next)
+    m2, T_ab, prev_quat = _propagate_mean(m, A, R, rot_lidar_imu, trans_lidar_imu, dt,
+                                          calc_grav, xa, cfg)
+    Fx, Fw = _state_jacobians(T_ab, prev_quat, A, R, dR, xa, dt,
+                              _consts(cfg, m.device)["dS"])
+    P2 = _block_cov_propagate(state.P, Fx, Fw @ Q @ Fw.T)
+    skip = dt <= 0.0  # reference ekf.cpp:235-240
+    return state._replace(m=torch.where(skip, m, m2), P=torch.where(skip, state.P, P2),
+                          **times)
+
+
+def predict_mean(state: EkfState, t, xg, xa, calc_grav, trans_lidar_imu, rot_lidar_imu,
+                 cfg: EkfConfig) -> EkfState:
+    """Mean-only forward extrapolation: `predict` without the covariance (the
+    reference's frame-end extrapolation semantics, ekf.cpp:393-410)."""
+    dt, times = _time_update(state, t)
+    m = state.m
+    A = lie.quat_propagator(xg - m[BGA:BGA + 3], dt)
+    R = lie.quat_to_rot(A @ m[ORI:ORI + 4])
+    m2, _, _ = _propagate_mean(m, A, R, rot_lidar_imu, trans_lidar_imu, dt, calc_grav, xa, cfg)
+    return state._replace(m=torch.where(dt <= 0.0, m, m2), **times)
+
+
+def normalize_quaternions(state: EkfState, cfg: EkfConfig, only_current: bool = False) -> EkfState:
+    """Reference ekf.cpp:619-634."""
+    m = state.m.clone()
+    m[ORI:ORI + 4] = lie.quat_normalize(state.m[ORI:ORI + 4])
+    m[RIL:RIL + 4] = lie.quat_normalize(state.m[RIL:RIL + 4])
+    if not only_current:
+        trail = m[INNER:].reshape(cfg.lidar_pose_trail, POSE_DIM)
+        quats = trail[:, 3:7]
+        norms = torch.linalg.norm(quats, dim=-1, keepdim=True)
+        big = norms > 1e-12
+        trail[:, 3:7] = torch.where(big, quats / torch.where(big, norms, torch.ones_like(norms)),
+                                    quats)
+    return state._replace(m=m)
+
+
+def maintain_positive_semi_definite(state: EkfState) -> EkfState:
+    """Symmetry projection (reference ekf.cpp:758-764)."""
+    return state._replace(P=0.5 * (state.P + state.P.T))
+
+
+def kalman_update(m, P, y, H, Rn):
+    """m, P <- Kalman update with measurement y = H m[:l] + noise, H (n, l)
+    with l <= D (reference update, ekf.cpp:36-60): Cholesky innovation
+    solve, P -= K H P. NaN throughout when the innovation covariance is not
+    positive definite."""
+    l = H.shape[1]
+    HP = H @ P[:l, :]  # (n, D)
+    S = Rn + HP[:, :l] @ H.T
+    K = chol_solve(S, HP).T  # (D, n)
+    v = y - H @ m[:l]
+    return m + K @ v, P - K @ HP
+
+
+def _joseph_update(P, H_full, Rn, K, eye):
+    """Joseph form (reference update_common_joseph_form, ekf.cpp:20-34)."""
+    IKH = eye - K @ H_full
+    return IKH @ P @ IKH.T + K @ Rn @ K.T
+
+
+def zero_vel_update(state: EkfState, cfg: EkfConfig) -> EkfState:
+    """ZUPT, rate-limited to 4 Hz (reference ekf.cpp:657-678)."""
+    c = _consts(cfg, state.m.device)
+    gate = (state.time - state.zupt_time) >= cfg.zupt_min_interval
+    m2, P2 = kalman_update(state.m, state.P, torch.zeros_like(state.m[:3]), c["H_zupt"],
+                           c["R_zupt"])
+    state = state._replace(
+        m=torch.where(gate, m2, state.m),
+        P=torch.where(gate, P2, state.P),
+        zupt_time=torch.where(gate, state.time, state.zupt_time),
+        was_stationary=state.was_stationary | gate,
+    )
+    return normalize_quaternions(state, cfg, only_current=True)
+
+
+def _apply_perm(m, P, idx, keep):
+    """m' = A m, P' = A P A^T for a 0/1 selection matrix A given as an index
+    map (`keep` zeroes the slots whose source is -1)."""
+    return m[idx] * keep, P[idx][:, idx] * keep[:, None] * keep[None, :]
+
+
+def update_visual_pose_aug(state: EkfState, cfg: EkfConfig) -> EkfState:
+    """Augment the trail with the current pose (reference ekf.cpp:700-734):
+    shift the trail (dropping the oldest pose), add trail noise on slot 0,
+    then a tight Kalman update pinning slot 0 to the current pos / ori."""
+    c = _consts(cfg, state.m.device)
+    m, P = _apply_perm(state.m, state.P, c["aug_idx"], c["aug_keep"])
+    P = P + c["Q_aug"]
+    H, Rn = c["H_aug"], c["R_aug"]
+    HP = H @ P
+    K = chol_solve(Rn + HP @ H.T, HP).T
+    m = m + K @ -(H @ m)
+    P = _joseph_update(P, H, Rn, K, c["eye_d"])
+    state = state._replace(m=m, P=P, augment_count=torch.clamp(
+        state.augment_count + 1, max=cfg.lidar_pose_trail))
+    return normalize_quaternions(maintain_positive_semi_definite(state), cfg)
+
+
+def update_undo_augmentation(state: EkfState, cfg: EkfConfig) -> EkfState:
+    """Drop the newest trail pose (reference ekf.cpp:736-756)."""
+    c = _consts(cfg, state.m.device)
+    m, P = _apply_perm(state.m, state.P, c["unaug_idx"], c["unaug_keep"])
+    state = state._replace(m=m, P=P, augment_count=torch.clamp(state.augment_count - 1, min=0))
+    return normalize_quaternions(maintain_positive_semi_definite(state), cfg)
+
+
+def update_and_propagate(state: EkfState, cfg: EkfConfig) -> EkfState:
+    """ZUPT when stationary, then trail augmentation (reference
+    ekf.cpp:680-698). Both sides of the stationary branch are computed and
+    selected (no host read)."""
+    stationary = torch.abs(torch.linalg.norm(state.m[VEL:VEL + 3])) < cfg.zupt_speed_threshold
+    still = update_undo_augmentation(zero_vel_update(state, cfg), cfg)
+    return update_visual_pose_aug(select(stationary, still, state), cfg)
+
+
+def predict_over_packet(state: EkfState, packet: ImuPacket, trans_lidar_imu, rot_lidar_imu,
+                        cfg: EkfConfig) -> EkfState:
+    """`predict` for every sample of the packet in turn, each followed by the
+    current-quaternion renormalization; masked samples leave the state as
+    it is (the reference's per-sample semantics)."""
+    calc_grav = state.m[GRAV_I:GRAV_I + 3]
+    for i in range(packet.mask.shape[0]):
+        s2 = predict(state, packet.time[i], packet.gyro[i], packet.acc[i], calc_grav,
+                     trans_lidar_imu, rot_lidar_imu, cfg)
+        s2 = normalize_quaternions(s2, cfg, only_current=True)
+        state = select(packet.mask[i], s2, state)
+    return state
+
+
+def _prefix_products(A: torch.Tensor) -> torch.Tensor:
+    """out[k] = A[k] @ ... @ A[0] for A (N, n, n), by a log-depth
+    Hillis-Steele scan (the JAX associative_scan's order differs)."""
+    d = 1
+    while d < A.shape[0]:
+        A = torch.cat([A[:d], A[d:] @ A[:-d]])
+        d *= 2
+    return A
+
+
+def _compose_transitions(Phi: torch.Tensor, Sig: torch.Tensor):
+    """The composition of N covariance transitions (Phi_k, Sigma_k), applied
+    in order: (Phi_N ... Phi_1, the accumulated noise). Log-depth scan of
+    (b o a) = (Pb Pa, Pb Sa Pb^T + Sb)."""
+    d = 1
+    while d < Phi.shape[0]:
+        Pa, Sa, Pb, Sb = Phi[:-d], Sig[:-d], Phi[d:], Sig[d:]
+        Phi = torch.cat([Phi[:d], Pb @ Pa])
+        Sig = torch.cat([Sig[:d], Pb @ Sa @ Pb.transpose(-1, -2) + Sb])
+        d *= 2
+    return Phi[-1], Sig[-1]
+
+
+def predict_over_packet_batched(state: EkfState, packet: ImuPacket, trans_lidar_imu,
+                                rot_lidar_imu, cfg: EkfConfig) -> EkfState:
+    """Batched `predict_over_packet` (JAX ekf.py:970): closed-form bias
+    decay, one batched propagator build and a log-depth product chain for
+    the orientation, prefix sums for velocity / position, batched Fx / Fw
+    and ONE application of the composed covariance transition. Masked
+    samples and duplicate timestamps are exact identity transitions (their
+    samples are zeroed first); dt < 0 clamps to 0."""
+    m, P = state.m, state.P
+    t, ok = packet.time, packet.mask
+    calc_grav = m[GRAV_I:GRAV_I + 3]
+    noise_scale = cfg.noise_scale * cfg.noise_scale
+    c = _consts(cfg, m.device)
+
+    # per-sample dt (masked samples and duplicates -> dt = 0)
+    NEG = -1e30
+    tv = torch.where(ok, t, NEG)
+    prev_valid = torch.cummax(torch.cat([torch.full_like(tv[:1], NEG), tv[:-1]]), 0).values
+    start_prev = torch.where(state.first_sample, NEG, state.prev_sample_t)
+    prev_t = torch.maximum(prev_valid, start_prev)
+    dt = torch.where(ok & (prev_t > 0.5 * NEG), t - prev_t, 0.0)
+    dt = torch.clamp(dt, min=0.0)
+    cumdt = torch.cumsum(dt, 0)
+    cd_prev = cumdt - dt
+
+    # closed-form bias decay (pre-sample values)
+    g_rate = cfg.gyro_process_noise if cfg.gyro_process_noise > 0.0 else 0.0
+    a_rate = cfg.acc_process_noise_rev if cfg.acc_process_noise_rev > 0.0 else 0.0
+    bga_pre = m[BGA:BGA + 3][None] * torch.exp(-g_rate * cd_prev)[:, None]
+    baa_pre = m[BAA:BAA + 3][None] * torch.exp(-a_rate * cd_prev)[:, None]
+    gyro = torch.where(ok[:, None], packet.gyro, 0.0)
+    acc = torch.where(ok[:, None], packet.acc, 0.0)
+
+    # orientation chain
+    A = lie.quat_propagator(gyro - bga_pre, dt)  # (N, 4, 4), orthogonal
+    q0 = m[ORI:ORI + 4]
+    q_raw = _prefix_products(A) @ q0
+    q = q_raw / torch.linalg.norm(q_raw, dim=-1, keepdim=True)
+    prev_q = torch.cat([q0[None], q[:-1]])
+    R = lie.quat_to_rot(q)
+    dR = lie.dquat_to_rot(q)
+
+    # velocity / position prefix sums
+    T_ab = m[BAT:BAT + 3][None] * acc - baa_pre
+    RtT = (R.transpose(-1, -2) @ T_ab[..., None])[..., 0]
+    vel = m[VEL:VEL + 3][None] + torch.cumsum((RtT + calc_grav[None]) * dt[:, None], 0)
+    vel_prev = torch.cat([m[VEL:VEL + 3][None], vel[:-1]])
+    pos = m[POS:POS + 3][None] + torch.cumsum(vel_prev * dt[:, None], 0)
+
+    # batched Jacobians, one composed covariance transition
+    Fx, Fw = _state_jacobians(T_ab, prev_q, A, R, dR, acc, dt, c["dS"])
+    FwQFw = Fw @ _ou_q(cfg, dt, noise_scale) @ Fw.transpose(-1, -2)
+    # dt = 0 is an exact identity transition (no phantom OU noise)
+    FwQFw = torch.where((dt > 0.0)[:, None, None], FwQFw, 0.0)
+    PhiN, SigN = _compose_transitions(Fx, FwQFw)
+    P2 = _block_cov_propagate(P, PhiN, SigN)
+
+    m2 = torch.cat([
+        pos[-1], vel[-1], q[-1],
+        m[BGA:BGA + 3] * torch.exp(-g_rate * cumdt[-1]),
+        m[BAA:BAA + 3] * torch.exp(-a_rate * cumdt[-1]),
+        m[BAT:BAT + 3], calc_grav, trans_lidar_imu, lie.rot_to_quat(rot_lidar_imu), m[SFT:],
+    ])
+
+    # bookkeeping
+    any_valid = torch.any(ok)
+    n_valid = torch.sum(ok)
+    last_t = torch.max(tv)
+    first_valid_t = torch.index_select(t, 0, torch.argmax(ok.to(torch.int32)).reshape(1))[0]
+    fst = torch.where(state.first_sample & any_valid, first_valid_t, state.first_sample_t)
+    keep_old_time = (~any_valid) | (state.first_sample & (n_valid < 2))
+    new = state._replace(
+        m=m2, P=P2,
+        time=torch.where(keep_old_time, state.time, last_t - fst),
+        first_sample_t=fst,
+        prev_sample_t=torch.where(any_valid, last_t, state.prev_sample_t),
+        first_sample=state.first_sample & ~any_valid,
+    )
+    # an all-masked packet leaves the state untouched
+    return select(any_valid, new, state)
+
+
+def predict_dispatch(state: EkfState, packet: ImuPacket, trans_lidar_imu, rot_lidar_imu,
+                     cfg: EkfConfig) -> EkfState:
+    """Config-selected predict: batched (default) or the sequential
+    per-sample walk."""
+    fn = predict_over_packet_batched if cfg.batched_predict else predict_over_packet
+    return fn(state, packet, trans_lidar_imu, rot_lidar_imu, cfg)
+
+
+def lidar_pose_update(state: EkfState, pose, pos_noise, ori_noise, cfg: EkfConfig) -> EkfState:
+    """Absolute pose measurement update from scan registration (JAX
+    ekf.py:1114): y = [t; q], H selecting POS and ORI, Cholesky innovation
+    solve, quaternion renormalization."""
+    c = _consts(cfg, state.m.device)
+    # state quaternion is world->body; the pose's rotation is body->world
+    q_meas = lie.rot_to_quat(pose[:3, :3].T)
+    q_cur = state.m[ORI:ORI + 4]
+    q_meas = torch.where(torch.dot(q_meas, q_cur) < 0, -q_meas, q_meas)
+    y = torch.cat([pose[:3, 3], q_meas])
+    noise_scale = cfg.noise_scale * cfg.noise_scale
+    Rn = torch.diag(torch.cat([torch.full_like(y[:3], pos_noise ** 2),
+                               torch.full_like(y[3:], ori_noise ** 2)])) * noise_scale
+    m, P = kalman_update(state.m, state.P, y, c["H_pose"], Rn)
+    state = maintain_positive_semi_definite(state._replace(m=m, P=P))
+    return normalize_quaternions(state, cfg, only_current=True)
+
+
+# accessors (reference ekf.cpp:766-795)
+
+
+def position(state: EkfState) -> torch.Tensor:
+    return state.m[POS:POS + 3]
+
+
+def velocity(state: EkfState) -> torch.Tensor:
+    return state.m[VEL:VEL + 3]
+
+
+def orientation(state: EkfState) -> torch.Tensor:
+    return state.m[ORI:ORI + 4]
+
+
+def speed(state: EkfState) -> torch.Tensor:
+    return torch.linalg.norm(state.m[VEL:VEL + 3])
+
+
+def pose_matrix(state: EkfState) -> torch.Tensor:
+    """Current (4, 4) world-from-imu transform (the filter quaternion is
+    world->body, so the rotation is transposed)."""
+    return lie.make_transform(lie.quat_to_rot(orientation(state)).T, position(state))
+
+
+# ---------------------------------------------------------------------------
+# IMU motion compensation (reference motion_compensation_with_imu,
+# ekf.cpp:292-469)
+# ---------------------------------------------------------------------------
+
+
+def _trail_sequential(q0, vel0, pos0, head_t, tail_t, g_mid, a_mid, valid_pair, lle, bga, bat,
+                      baa, grav, mean_acc_norm, pcl_beg_time):
+    """The reference's pair walk (ekf.cpp:315-391), one IMU pair at a time."""
+    quat, vel, pos = q0, vel0, pos0
+    rec = {k: [] for k in ("offset", "acc", "gyr", "vel", "pos", "rot")}
+    for i in range(valid_pair.shape[0]):
+        ok = valid_pair[i] & (tail_t[i] >= lle)  # ekf.cpp:322-323
+        dt = torch.where(head_t[i] < lle, tail_t[i] - lle, tail_t[i] - head_t[i])
+        dt = torch.where(ok, dt, 0.0)
+        # the sign-flipped propagator runs the trail body->world
+        # (ekf.cpp:372-375); the velocity update uses rot directly
+        quat_n = lie.quat_normalize(lie.quat_propagator(g_mid[i] - bga, -dt) @ quat)
+        rot = lie.quat_to_rot(quat_n)
+        xa = a_mid[i] / mean_acc_norm * GRAVITY  # unit-gravity scaling
+        vel_n = vel + (rot @ (bat * xa - baa) + grav) * dt
+        pos_n = pos + vel_n * dt
+        quat = torch.where(ok, quat_n, quat)
+        vel = torch.where(ok, vel_n, vel)
+        pos = torch.where(ok, pos_n, pos)
+        rec["offset"].append(torch.where(
+            valid_pair[i],
+            torch.where(ok, torch.clamp(tail_t[i] - pcl_beg_time, min=0.0), 0.0),
+            float("inf")))
+        rec["acc"].append(xa)
+        rec["gyr"].append(g_mid[i])
+        rec["vel"].append(vel)
+        rec["pos"].append(pos)
+        rec["rot"].append(lie.quat_to_rot(quat))
+    return quat, vel, pos, {k: torch.stack(v) for k, v in rec.items()}
+
+
+def _trail_batched(q0, vel0, pos0, head_t, tail_t, g_mid, a_mid, valid_pair, lle, bga, bat,
+                   baa, grav, mean_acc_norm, pcl_beg_time):
+    """The same trail as one product chain plus prefix sums (JAX
+    batched_deskew): skipped pairs are dt = 0 identity transitions, and the
+    masked pairs' samples are zeroed before they enter."""
+    ok = valid_pair & (tail_t >= lle)
+    dt = torch.where(head_t < lle, tail_t - lle, tail_t - head_t)
+    dt = torch.where(ok, dt, 0.0)
+    g = torch.where(valid_pair[:, None], g_mid, 0.0)
+    a = torch.where(valid_pair[:, None], a_mid, 0.0)
+    q_raw = _prefix_products(lie.quat_propagator(g - bga[None, :], -dt)) @ q0
+    quat = q_raw / torch.linalg.norm(q_raw, dim=-1, keepdim=True)
+    rot = lie.quat_to_rot(quat)
+    xa = a / mean_acc_norm * GRAVITY
+    dv = (rot @ (bat[None, :] * xa - baa[None, :])[..., None])[..., 0] + grav[None, :]
+    vel = vel0[None, :] + torch.cumsum(dv * dt[:, None], 0)
+    pos = pos0[None, :] + torch.cumsum(vel * dt[:, None], 0)
+    offset = torch.where(valid_pair,
+                         torch.where(ok, torch.clamp(tail_t - pcl_beg_time, min=0.0), 0.0),
+                         float("inf"))
+    trail = dict(offset=offset, acc=xa, gyr=g_mid, vel=vel, pos=pos, rot=rot)
+    return quat[-1], vel[-1], pos[-1], trail
+
+
+def motion_compensation_with_imu(state: EkfState, packet: ImuPacket, points, rel_t, pts_mask,
+                                 mean_acc_norm, pcl_beg_time, cfg: EkfConfig):
+    """IMU-trajectory undistortion to the scan-end frame (JAX ekf.py:682).
+
+    Builds the per-interval IMU pose trail (the sequential pair walk, or
+    with `cfg.batched_deskew` the product chain), extrapolates to the scan
+    end (ekf.cpp:393-410), then moves every point in f32:
+    P' = R_end^T (R_i exp(w dt) P + T_i) (ekf.cpp:420-456), the interval i
+    being the last trail entry whose offset is below the point's time.
+    points (N, 3) f32, rel_t (N,) f64, pts_mask (N,) bool. Returns
+    (state', deskewed (N, 3) f32, diagnostics)."""
+    m = state.m
+    bga, bat, baa = m[BGA:BGA + 3], m[BAT:BAT + 3], m[BAA:BAA + 3]
+    grav, t_il = m[GRAV_I:GRAV_I + 3], m[PIL:PIL + 3]
+    lle = state.last_lidar_end_time
+
+    last_rel = torch.max(torch.where(pts_mask, rel_t.to(F32), 0.0)).to(F64)
+    pcl_end_time = pcl_beg_time + last_rel
+    imu_t = packet.time
+    valid_pair = packet.mask[:-1] & packet.mask[1:]
+    imu_end_time = torch.max(torch.where(packet.mask, imu_t, float("-inf")))
+
+    # the filter quaternion is world->body; the trail runs body->world
+    q0 = lie.quat_conj(m[ORI:ORI + 4])
+    vel0, pos0 = m[VEL:VEL + 3], m[POS:POS + 3]
+    g_mid = 0.5 * (packet.gyro[:-1] + packet.gyro[1:])
+    a_mid = 0.5 * (packet.acc[:-1] + packet.acc[1:])
+    walk = _trail_batched if cfg.batched_deskew else _trail_sequential
+    quat_f, vel_f, pos_f, trail = walk(q0, vel0, pos0, imu_t[:-1], imu_t[1:], g_mid, a_mid,
+                                       valid_pair, lle, bga, bat, baa, grav, mean_acc_norm,
+                                       pcl_beg_time)
+
+    # frame-end extrapolation (ekf.cpp:393-410; |pcl_end - imu_end| as in
+    # the reference)
+    n_pairs = torch.clamp(torch.sum(valid_pair), min=1)
+    last = (n_pairs - 1).reshape(1)
+    last_g = torch.index_select(g_mid, 0, last)[0]
+    last_a = torch.index_select(a_mid, 0, last)[0] / mean_acc_norm * GRAVITY
+    dt_end = torch.abs(pcl_end_time - imu_end_time)
+    A_end = lie.quat_propagator(last_g - bga, -dt_end)
+    rot_end = lie.quat_to_rot(lie.quat_normalize(A_end @ quat_f))
+    vel_end = vel_f + (rot_end @ (bat * last_a - baa) + grav) * dt_end
+    pos_end = pos_f + vel_end * dt_end
+    pos_lidar_end = rot_end @ t_il + pos_end
+
+    # per-point undistortion in f32: the head entry 0 is the state at scan
+    # begin (populate_imu_pose(0.0), ekf.cpp:307); interval search and the
+    # in-interval offset in f32 (a scan period resolves to ~6 ns)
+    zero3 = torch.zeros_like(vel0)
+    offsets = torch.cat([torch.zeros_like(trail["offset"][:1]), trail["offset"]]).to(F32)
+    table = torch.cat([
+        torch.cat([lie.quat_to_rot(q0).reshape(1, 9), trail["rot"].reshape(-1, 9)]),
+        torch.cat([zero3[None], trail["gyr"]]),
+        torch.cat([pos0[None], trail["pos"]]),
+        torch.cat([vel0[None], trail["vel"]]),
+        torch.cat([zero3[None], trail["acc"]]),
+    ], dim=1).to(F32)  # (M, 21)
+    rel32 = rel_t.to(F32)
+    k = torch.clamp(torch.searchsorted(offsets, rel32, side="left") - 1, 0, offsets.shape[0] - 1)
+    off0 = torch.where(torch.isfinite(offsets), offsets, 0.0)
+    cols = torch.index_select(table, 0, k).T  # (21, N): one trail row per point
+    dtp = rel32 - torch.index_select(off0, 0, k)
+    R00, R01, R02, R10, R11, R12, R20, R21, R22, gx, gy, gz = cols[:12]
+
+    wx, wy, wz = gx * dtp, gy * dtp, gz * dtp
+    sq = wx * wx + wy * wy + wz * wz  # |w| <= |gyr| * scan period << 1
+    small = sq < 1e-12
+    th = torch.sqrt(torch.where(small, 1.0, sq))
+    sinc = torch.where(small, 1.0 - sq / 6.0, torch.sin(th) / th)
+    cos_t = torch.where(small, 1.0 - 0.5 * sq, torch.cos(th))
+    # (1 - cos th) / th^2 = sinc(th / 2)^2 / 2, free of f32 cancellation
+    half = torch.where(small, 1.0, torch.sin(0.5 * th) / (0.5 * th))
+    b = 0.5 * half * half
+
+    def exp_apply(vx, vy, vz):
+        # exp(w) v = v cos + (w x v) sinc + w (w . v) (1 - cos) / |w|^2
+        dot = wx * vx + wy * vy + wz * vz
+        return (vx * cos_t + (wy * vz - wz * vy) * sinc + wx * dot * b,
+                vy * cos_t + (wz * vx - wx * vz) * sinc + wy * dot * b,
+                vz * cos_t + (wx * vy - wy * vx) * sinc + wz * dot * b)
+
+    def head_apply(ax, ay, az):  # R_head v, per-point coefficients
+        return (R00 * ax + R01 * ay + R02 * az,
+                R10 * ax + R11 * ay + R12 * az,
+                R20 * ax + R21 * ay + R22 * az)
+
+    rx, ry, rz = head_apply(*exp_apply(points[:, 0], points[:, 1], points[:, 2]))  # R_i p
+    til = t_il.to(F32)
+    ix, iy, iz = head_apply(*exp_apply(til[0], til[1], til[2]))  # R_i t_il
+    ple = pos_lidar_end.to(F32)
+    h2 = 0.5 * dtp * dtp
+    cx = rx + (cols[12] + cols[15] * dtp + cols[18] * h2 + ix - ple[0])
+    cy = ry + (cols[13] + cols[16] * dtp + cols[19] * h2 + iy - ple[1])
+    cz = rz + (cols[14] + cols[17] * dtp + cols[20] * h2 + iz - ple[2])
+    re = rot_end.to(F32)
+    deskewed = torch.stack([  # R_end^T p
+        re[0, 0] * cx + re[1, 0] * cy + re[2, 0] * cz,
+        re[0, 1] * cx + re[1, 1] * cy + re[2, 1] * cz,
+        re[0, 2] * cx + re[1, 2] * cy + re[2, 2] * cz,
+    ], dim=-1).to(points.dtype)
+
+    state = state._replace(last_lidar_end_time=pcl_end_time)
+    diag = dict(vel_end=vel_end, pos_end=pos_end, rot_end=rot_end, n_pairs=n_pairs)
+    return state, torch.where(pts_mask[:, None], deskewed, points), diag

@@ -1,0 +1,322 @@
+"""LiDAR-inertial odometry (counterpart of the JAX package's
+`models/lio.py`): IMU static initialization, then per scan an EKF predict
+over the scan's IMU packet, IMU motion compensation, registration seeded
+by the EKF pose, and the EKF pose update with ZUPT and trail augmentation.
+
+    state', out = step(state, scan, packet, cfg)
+
+Registration goes the way the JAX step picks it (lio.py:138): the fast
+trunk (`kiss_icp._fast_trunk`: kernels K2, K1 per ICP round, K3) when
+gn_backend="pallas" without a batch unroll, the classic f64
+`register_core` otherwise. While the static initialization is open the
+scan is deskewed at constant velocity (the K2 row's twist on the fast
+path); after it, by the IMU trail.
+
+Host reads per scan: one of `imu_init.done`, which picks the IMU or the
+constant-velocity branch (the JAX `lax.cond`, lio.py:220) and skips the
+initialization recursion once it is a no-op; plus those of the
+registration (one per ICP round on the fast path, one per GN iteration on
+the classic one). The EKF update, the seed on `just_done` and the EKF's
+own branches compute both sides and select on the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig
+from ..ops import deskew as deskew_ops
+from ..ops import icp as icp_ops
+from ..ops import imu as imu_ops
+from ..ops import lie, voxel_map
+from ..ops.preprocess import Scan
+from . import ekf as ekf_mod
+from . import kiss_icp
+
+F64 = torch.float64
+VEL_RING = 8  # CV-phase finite-difference velocity history (accel seed)
+
+
+class LioState(NamedTuple):
+    odo: kiss_icp.KissState  # map + pose history + adaptive threshold
+    ekf: ekf_mod.EkfState
+    imu_init: imu_ops.ImuInitState
+    last_imu: torch.Tensor  # (7,) f64: [t, gyro(3), acc(3)] of previous packet tail
+    scan_count: torch.Tensor  # () i32
+    vel_ring: torch.Tensor  # (VEL_RING, 3) f64 recent odometry velocities
+    vel_ring_n: torch.Tensor  # () i32 valid entries (newest at row -1)
+    init_v0: torch.Tensor  # (3,) f64 odometry velocity at init-window start
+    init_t0: torch.Tensor  # () f64 its timestamp; -1 = not latched yet
+
+
+class LioOutput(NamedTuple):
+    pose: torch.Tensor  # (4, 4) f64 world-from-lidar at scan end
+    ekf_pose: torch.Tensor  # (4, 4) f64 world-from-imu
+    velocity: torch.Tensor  # (3,) f64
+    keypoints: torch.Tensor  # (S, 3) f32 ICP source (world frame @ guess)
+    keypoints_mask: torch.Tensor
+    deskewed: torch.Tensor  # (M, 3) f32 map-insert downsample
+    deskewed_mask: torch.Tensor
+    icp_iterations: torch.Tensor
+    num_correspondences: torch.Tensor
+    residual_rms: torch.Tensor
+    sigma: torch.Tensor
+    map_voxels: torch.Tensor  # () i32
+    icp_converged: torch.Tensor  # () bool
+    window_drops: torch.Tensor  # () i32 downsample-window invalidations
+    imu_initialized: torch.Tensor  # () bool
+    used_imu: torch.Tensor  # () bool — IMU deskew active this scan
+
+
+def init_state(cfg: PipelineConfig, device: torch.device | str = "cuda") -> LioState:
+    return LioState(
+        odo=kiss_icp.init_state(cfg, device),
+        ekf=ekf_mod.init(cfg.ekf, device),
+        imu_init=imu_ops.init_state(device),
+        last_imu=torch.zeros(7, dtype=F64, device=device),
+        scan_count=torch.zeros((), dtype=torch.int32, device=device),
+        vel_ring=torch.zeros((VEL_RING, 3), dtype=F64, device=device),
+        vel_ring_n=torch.zeros((), dtype=torch.int32, device=device),
+        init_v0=torch.zeros(3, dtype=F64, device=device),
+        init_t0=torch.full((), -1.0, dtype=F64, device=device),
+    )
+
+
+def _ring_accel(ring, n, dt):
+    """Least-squares world acceleration from the velocity ring (JAX
+    lio.py:88): the slope over the last n (<= VEL_RING) dt-spaced velocities,
+    zero until 3 exist."""
+    m = torch.clamp(n, max=VEL_RING)
+    idx = torch.arange(VEL_RING, dtype=F64, device=ring.device)
+    w = (idx >= (VEL_RING - m)).to(F64)
+    t = idx * dt
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+    tbar = torch.sum(w * t) / wsum
+    ct = w * (t - tbar)
+    denom = torch.sum(ct * t)
+    slope = torch.sum(ct[:, None] * ring, dim=0) / torch.where(denom > 0, denom, 1.0)
+    return torch.where((m >= 3) & (denom > 0), slope, 0.0)
+
+
+def _with_prev_sample(packet: ekf_mod.ImuPacket, last_imu) -> ekf_mod.ImuPacket:
+    """Prepend the previous packet's tail sample (reference ekf.cpp:295)."""
+    return ekf_mod.ImuPacket(
+        time=torch.cat([last_imu[0:1], packet.time]),
+        gyro=torch.cat([last_imu[None, 1:4], packet.gyro]),
+        acc=torch.cat([last_imu[None, 4:7], packet.acc]),
+        mask=torch.cat([(last_imu[0:1] > 0), packet.mask]),
+    )
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, on the device (no host read)."""
+    return torch.index_select(x, 0, i.reshape(1))[0]
+
+
+def _imu_to_lidar(e: ekf_mod.EkfState) -> torch.Tensor:
+    m = e.m
+    return lie.make_transform(lie.quat_to_rot(m[ekf_mod.RIL:ekf_mod.RIL + 4]),
+                              m[ekf_mod.PIL:ekf_mod.PIL + 3])
+
+
+def _imu_branch(state: LioState, full: ekf_mod.ImuPacket, scan: Scan, cfg: PipelineConfig):
+    """EKF predict over the packet, mean-only hold to scan end, IMU deskew;
+    the guess is the EKF pose composed with the imu-lidar transform."""
+    e = state.ekf
+    p_il = e.m[ekf_mod.PIL:ekf_mod.PIL + 3]
+    R_il = lie.quat_to_rot(e.m[ekf_mod.RIL:ekf_mod.RIL + 4])
+    e = ekf_mod.predict_dispatch(e, full, p_il, R_il, cfg.ekf)
+    # extrapolate the nominal state to SCAN END (zero-order hold on the
+    # last sample, the reference's frame-end extrapolation, ekf.cpp:393-410)
+    li = torch.clamp(torch.sum(full.mask) - 1, min=0)
+    e = ekf_mod.predict_mean(e, scan.t_end, _take(full.gyro, li), _take(full.acc, li),
+                             e.m[ekf_mod.GRAV_I:ekf_mod.GRAV_I + 3], p_il, R_il, cfg.ekf)
+    mean_acc_norm = torch.linalg.norm(state.imu_init.mean_acc)
+    e, deskewed, _ = ekf_mod.motion_compensation_with_imu(
+        e, full, scan.xyz, scan.rel_t, scan.mask, mean_acc_norm, scan.t_begin, cfg.ekf)
+    return e, deskewed, lie.compose(ekf_mod.pose_matrix(e), _imu_to_lidar(e))
+
+
+def _fast_outputs(row, fcore):
+    """The fast trunk's pose and threshold state (as `_register_frame_fast`)."""
+    prow = fcore.prow
+    pose = lie.make_transform(prow[0:9].reshape(3, 3), prow[9:12])
+    thr = icp_ops.ThresholdState(row[14].clone(), row[15].to(torch.int32),
+                                 prow[25:41].reshape(4, 4).clone())
+    dev = pose.device
+    return kiss_icp.CoreOutput(
+        new_map=fcore.new_map, threshold=thr, pose=pose,
+        keypoints=fcore.source, keypoints_mask=fcore.source_mask,
+        map_points=fcore.map_points, map_points_mask=fcore.map_points_mask,
+        # a fill, not a host-to-device copy of the loop's count
+        icp_iterations=torch.full((), fcore.iterations, dtype=torch.int32, device=dev),
+        num_correspondences=fcore.num_correspondences,
+        residual_rms=fcore.residual_rms, sigma=fcore.sigma,
+        icp_converged=fcore.converged, window_drops=fcore.window_drops,
+    )
+
+
+def step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineConfig,
+         inplace: bool = False):
+    """One LIO step (JAX lio.py:126). Returns (state', LioOutput); the passed
+    state is left unchanged unless `inplace` (see `step_donated`)."""
+    fast = kiss_icp._is_fast(cfg)
+    odo = state.odo
+    dev = odo.pose.device
+    full = _with_prev_sample(packet, state.last_imu)
+
+    # IMU static initialization; once done the recursion is a no-op
+    use_imu = bool(state.imu_init.done)  # host read: the branch below
+    if use_imu:
+        imu_init_next = state.imu_init
+    else:
+        imu_init_next = imu_ops.accumulate(
+            state.imu_init, full.gyro, imu_ops.remap_axes(full.acc, cfg.imu.coordinate),
+            full.mask, cfg.imu)
+    just_done = imu_init_next.done & ~state.imu_init.done
+    ekf_state = state.ekf  # seeding happens after registration (see below)
+
+    # pre-ICP bookkeeping row (fast path): CV guess, sigma, deskew twist
+    row = kiss_icp.pose_pre_row(odo, cfg) if fast else None
+    if use_imu:
+        ekf_state, deskewed_xyz, init_guess = _imu_branch(state, full, scan, cfg)
+    elif fast:
+        # kernel-gated twist: identity when deskew is off or < 3 poses
+        deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, row[16:29])
+        init_guess = None  # row[:12] is the guess
+    else:
+        deskewed_xyz = scan.xyz
+        if cfg.icp.deskew:
+            deskewed_xyz = torch.where(
+                (odo.num_poses > 2)[..., None, None],
+                deskew_ops.constant_velocity_deskew_fast(scan.xyz, scan.tau, odo.pose_prev,
+                                                         odo.pose),
+                scan.xyz)
+        last_pose = kiss_icp._where(odo.num_poses == 0, kiss_icp._eye4(dev), odo.pose)
+        init_guess = lie.compose(last_pose, kiss_icp.get_prediction_model(odo))
+
+    # registration: the trunk shared with the lidar-only step
+    if fast:
+        guess = row if init_guess is None else torch.cat(
+            [init_guess[:3, :3].reshape(9), init_guess[:3, 3]])
+        core = _fast_outputs(row, kiss_icp._fast_trunk(
+            odo.map, deskewed_xyz, scan.mask, scan.tau, guess, row[12], cfg, inplace=inplace))
+    else:
+        moved = kiss_icp.has_moved(odo, cfg.icp.min_motion_th)
+        # the JAX LIO step hands register_core no per-point time
+        core = kiss_icp.register_core(odo.map, odo.threshold, moved, deskewed_xyz, scan.mask,
+                                      init_guess, cfg, inplace=inplace)
+
+    # EKF measurement update + trail maintenance
+    if use_imu:
+        T_wi = lie.compose(core.pose, lie.transform_inverse(_imu_to_lidar(ekf_state)))
+        ekf_state = ekf_mod.lidar_pose_update(ekf_state, T_wi, cfg.ekf.lidar_pos_noise,
+                                              cfg.ekf.lidar_ori_noise, cfg.ekf)
+        ekf_state = ekf_mod.update_and_propagate(ekf_state, cfg.ekf)
+
+    # CV-phase velocity ring (JAX lio.py:274-299): frozen once the EKF runs
+    dt_scan = torch.clamp(scan.t_end - scan.t_begin, min=1e-3)
+    v_fd = (core.pose[:3, 3] - odo.pose[:3, 3]) / dt_scan
+    vel_ring, vel_ring_n = state.vel_ring, state.vel_ring_n
+    init_v0, init_t0 = state.init_v0, state.init_t0
+    if not use_imu:
+        track = odo.num_poses > 0
+        vel_ring = torch.where(track, torch.cat([vel_ring[1:], v_fd[None, :]]), vel_ring)
+        vel_ring_n = torch.where(track, torch.clamp(vel_ring_n + 1, max=VEL_RING), vel_ring_n)
+        latch = track & (init_t0 < 0)
+        init_v0 = torch.where(latch, v_fd, init_v0)
+        init_t0 = torch.where(latch, scan.t_end, init_t0)
+
+        # static init completed THIS scan: seed the EKF nominal state from
+        # the running odometry (JAX lio.py:301-348), selected on the device
+        T_il = _imu_to_lidar(ekf_state)
+        anchor_pose = core.pose
+        if cfg.icp.deskew:
+            # the CV odometry anchors at mid-scan; the EKF at scan end
+            anchor_pose = anchor_pose.clone()
+            anchor_pose[:3, 3] += 0.5 * dt_scan * v_fd
+        T_wi = lie.compose(anchor_pose, lie.transform_inverse(T_il))
+        vel = torch.where(odo.num_poses > 0, v_fd, 0.0)
+        tw = scan.t_end - init_t0
+        have_window = (init_t0 >= 0) & (tw > 0.25)
+        accel = torch.where(have_window, (v_fd - init_v0) / torch.clamp(tw, min=1e-3),
+                            _ring_accel(vel_ring, vel_ring_n, dt_scan))
+        seeded = ekf_mod.initialize_from_odometry(
+            ekf_state, imu_init_next.mean_acc, T_wi, vel, cfg.ekf, accel_world=accel,
+            window_time=torch.clamp(tw, min=0.0))
+        ekf_state = ekf_mod.select(just_done, seeded, ekf_state)
+
+    # map + pose bookkeeping
+    first = odo.num_poses == 0
+    new_odo = kiss_icp.KissState(
+        map=core.new_map,
+        pose=core.pose,
+        pose_prev=torch.where(first, core.pose, odo.pose),
+        first_pose=torch.where(first, core.pose, odo.first_pose),
+        num_poses=odo.num_poses + 1,
+        threshold=core.threshold,
+    )
+    # carry the packet's last valid sample for the next scan
+    n_valid = torch.sum(full.mask)
+    last = torch.clamp(n_valid - 1, min=0)
+    last_imu = torch.cat([_take(full.time, last)[None], _take(full.gyro, last),
+                          _take(full.acc, last)])
+    last_imu = torch.where(n_valid > 0, last_imu, state.last_imu)
+
+    new_state = LioState(
+        odo=new_odo, ekf=ekf_state, imu_init=imu_init_next, last_imu=last_imu,
+        scan_count=state.scan_count + 1, vel_ring=vel_ring, vel_ring_n=vel_ring_n,
+        init_v0=init_v0, init_t0=init_t0,
+    )
+    out = LioOutput(
+        pose=core.pose,
+        ekf_pose=ekf_mod.pose_matrix(ekf_state),
+        velocity=ekf_mod.velocity(ekf_state),
+        keypoints=core.keypoints,
+        keypoints_mask=core.keypoints_mask,
+        deskewed=core.map_points,
+        deskewed_mask=core.map_points_mask,
+        icp_iterations=core.icp_iterations,
+        num_correspondences=core.num_correspondences,
+        residual_rms=core.residual_rms,
+        sigma=core.sigma,
+        map_voxels=voxel_map.num_voxels(core.new_map),
+        icp_converged=core.icp_converged,
+        window_drops=core.window_drops,
+        imu_initialized=imu_init_next.done,
+        used_imu=torch.full((), use_imu, dtype=torch.bool, device=dev),
+    )
+    return new_state, out
+
+
+def step_donated(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineConfig):
+    """`step` that updates the map tables of `state` in place (the analogue
+    of the JAX donated step): no copy of the map per scan. The caller must
+    not reuse `state` after the call."""
+    return step(state, scan, packet, cfg, inplace=True)
+
+
+def pack_imu_packet(times, gyros, accs, max_samples: int,
+                    device: torch.device | str = "cuda") -> ekf_mod.ImuPacket:
+    """Pad per-scan IMU arrays into a packet of `max_samples` on `device`."""
+    times = np.asarray(times, np.float64)
+    n = times.shape[0]
+    if n > max_samples:
+        raise ValueError(f"{n} IMU samples > capacity {max_samples}")
+
+    def pad(a):
+        out = np.zeros((max_samples,) + a.shape[1:], np.float64)
+        out[:n] = a
+        return torch.as_tensor(out, device=device)
+
+    mask = np.zeros(max_samples, bool)
+    mask[:n] = True
+    return ekf_mod.ImuPacket(
+        time=pad(times),
+        gyro=pad(np.asarray(gyros, np.float64).reshape(n, 3)),
+        acc=pad(np.asarray(accs, np.float64).reshape(n, 3)),
+        mask=torch.as_tensor(mask, device=device),
+    )

@@ -8,9 +8,10 @@ Conventions as in the JAX package:
 Only what the ported paths (and their tests) call is ported. Every
 function takes leading batch dims, so a leading stream axis (S, ...) of
 the batched path goes through the same code. The JAX package's while-loop-free f64 helpers (`se3_exp_poly`,
-`matmul_nowhile`, `chol_solve_unrolled`) exist to lower f64 on a TPU and
-have no counterpart: the GPU computes f64 natively, so `compose` is a
-plain matmul here.
+`_sincos_poly`, `matmul_nowhile`, `chol_solve_unrolled`) exist to lower f64
+on a TPU and have no counterpart: the GPU computes f64 natively, so
+`compose` is a plain matmul here and the EKF uses torch.sin / cos / exp
+and torch.linalg.
 """
 
 from __future__ import annotations
@@ -227,3 +228,92 @@ def rotate_points(R: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 def delta_pose(T_first: torch.Tensor, T_last: torch.Tensor) -> torch.Tensor:
     """log(T_first^-1 @ T_last) (reference calculation_helpers.cpp:99-102)."""
     return se3_log(transform_inverse(T_first) @ T_last)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (w, x, y, z), for the EKF
+# ---------------------------------------------------------------------------
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    n = torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q / torch.where(n < _EPS, torch.ones_like(n), n)
+
+
+def dquat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Analytic Jacobian of `quat_to_rot`: (..., 4, 3, 3), dR/dq_i stacked
+    over i (the JAX package's documented replacement of the reference's
+    perturbation hack, helper.hpp:19-33)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    zero = torch.zeros_like(w)
+
+    def m(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    dw = m([[zero, -2 * z, 2 * y], [2 * z, zero, -2 * x], [-2 * y, 2 * x, zero]])
+    dx = m([[zero, 2 * y, 2 * z], [2 * y, -4 * x, -2 * w], [2 * z, 2 * w, -4 * x]])
+    dy = m([[-4 * y, 2 * x, 2 * w], [2 * x, zero, 2 * z], [-2 * w, 2 * z, -4 * y]])
+    dz = m([[-4 * z, -2 * w, 2 * x], [2 * w, -4 * z, 2 * y], [2 * x, 2 * y, zero]])
+    return torch.stack([dw, dx, dy, dz], dim=-3)
+
+
+def quat_from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Quaternion rotating a onto b (Eigen FromTwoVectors; reference
+    ekf.cpp:197), with an arbitrary orthogonal axis for antiparallel inputs."""
+    a = a / torch.clamp(torch.linalg.norm(a, dim=-1, keepdim=True), min=_EPS)
+    b = b / torch.clamp(torch.linalg.norm(b, dim=-1, keepdim=True), min=_EPS)
+    c = torch.sum(a * b, dim=-1)
+    axis = cross(a, b)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)  # built on the device
+    ortho = cross(a, torch.where(torch.abs(a[..., 0:1]) < 0.9, eye[0], eye[1]))
+    anti = c < -1.0 + 1e-9
+    w = torch.sqrt(torch.clamp(0.5 * (1.0 + c), min=0.0))
+    n = torch.linalg.norm(axis, dim=-1)
+    one = torch.ones_like(n)
+    s = torch.where(n < _EPS, one,
+                    torch.sqrt(torch.clamp(0.5 * (1.0 - c), min=0.0)) / torch.where(n < _EPS, one, n))
+    q = torch.cat([w[..., None], axis * s[..., None]], dim=-1)
+    q_anti = torch.cat([torch.zeros_like(w[..., None]),
+                        ortho / torch.clamp(torch.linalg.norm(ortho, dim=-1, keepdim=True),
+                                            min=_EPS)], dim=-1)
+    return quat_normalize(torch.where(anti[..., None], q_anti, q))
+
+
+def quat_xi_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The 4x4 'S' structure of the reference EKF (ekf.cpp:471-484), with
+    S(w)^2 = -|w|^2 I."""
+    w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(w0)
+    return torch.stack(
+        [
+            torch.stack([z, -w0, -w1, -w2], dim=-1),
+            torch.stack([w0, z, -w2, w1], dim=-1),
+            torch.stack([w1, w2, z, -w0], dim=-1),
+            torch.stack([w2, -w1, w0, z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _sinc(theta: torch.Tensor) -> torch.Tensor:
+    """sin(theta)/theta with the Taylor guard near 0."""
+    small = theta * theta < _EPS
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    return torch.where(small, 1.0 - theta * theta / 6.0, torch.sin(safe) / safe)
+
+
+def quat_propagator(w: torch.Tensor, dt) -> torch.Tensor:
+    """Closed-form A = exp(S(w) * (-dt/2)) (replaces Eigen's expm, reference
+    ekf.cpp:266-267): cos(c|w|) I + sin(c|w|)/|w| S with c = -dt/2. `w`
+    (..., 3), `dt` a float or a tensor broadcasting against w[..., 0]."""
+    c = -0.5 * torch.as_tensor(dt, dtype=w.dtype, device=w.device)
+    sq, small, norm_w = _safe_theta(w)
+    safe_norm = torch.where(small, torch.zeros_like(norm_w), norm_w)
+    a = torch.cos(safe_norm * torch.abs(c))
+    b = _sinc(safe_norm * c) * c
+    eye = torch.eye(4, dtype=w.dtype, device=w.device)
+    return a[..., None, None] * eye + b[..., None, None] * quat_xi_matrix(w)

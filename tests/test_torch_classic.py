@@ -35,7 +35,10 @@ from lidar_imu_slam_tpu.parallel import streams as jstreams
 from lidar_imu_slam_tpu.validation import oracle as oracle_mod
 from lidar_imu_slam_tpu_torch import config as tcfg
 from lidar_imu_slam_tpu_torch import interop
+from lidar_imu_slam_tpu_torch.models import ekf as tekf
 from lidar_imu_slam_tpu_torch.models import kiss_icp as tk
+from lidar_imu_slam_tpu_torch.models import lio as tlio
+from lidar_imu_slam_tpu_torch.ops import imu as timu
 from lidar_imu_slam_tpu_torch.ops import icp as ticp
 from lidar_imu_slam_tpu_torch.ops import lie as tlie
 from lidar_imu_slam_tpu_torch.ops import preprocess as tpre
@@ -50,7 +53,10 @@ MAP_KW = dict(voxel_size=0.5, max_range=30.0, capacity=1 << 12)
 @pytest.mark.parametrize("fn", [tk.init_state, tstreams.init_batched_state, tvm.create,
                                 ticp.threshold_init, tpre.pack_raw_scan,
                                 interop.kiss_state_from_numpy,
-                                interop.batched_kiss_state_from_numpy])
+                                interop.batched_kiss_state_from_numpy,
+                                tlio.init_state, tlio.pack_imu_packet, tekf.init,
+                                timu.init_state, interop.lio_state_from_numpy,
+                                interop.imu_packet_from_numpy])
 def test_entry_points_default_to_the_card(fn):
     # a caller who leaves out `device=` gets the card (ROADMAP queue 3)
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -12,7 +12,10 @@ K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
 1 (the f32 per-query work may contract into FMAs in the kernel); K6
 indices equal and d^2 bit-equal (it rounds every f32 step as the plain
 version does); card against CPU poses 1e-4 over a short drive,
-single-stream or batched, fast or classic.
+single-stream or batched, fast or classic; the probe gathers `take_rows`
+and `take_lanes` bit-equal; `gn_proto` R and t within 1e-5 (the kernel and
+the plain version differ only by the order of the f32 block sums) and
+`conv` equal; a short LIO drive, card against CPU, 1e-4 on both branches.
 """
 
 import numpy as np
@@ -23,10 +26,12 @@ from lidar_imu_slam_tpu_torch import config as cfgmod
 from lidar_imu_slam_tpu_torch.host import synthetic
 from lidar_imu_slam_tpu_torch.models import kiss_icp
 from lidar_imu_slam_tpu_torch.ops import lie, voxel_map
-from lidar_imu_slam_tpu_torch.ops.kernels import _common, icp_gn, nn_bruteforce, pose_chain
+from lidar_imu_slam_tpu_torch.ops.kernels import (_common, icp_gn, nn_bruteforce, pose_chain,
+                                                  probes)
 from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
                                                      stack_raw_scans)
 from lidar_imu_slam_tpu_torch.parallel import streams
+from lidar_imu_slam_tpu_torch.tools import probes as probe_tool
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +271,74 @@ def test_classic_drive_card_matches_cpu(dev):
     pool = nn_bruteforce.pool_from_map(states[dev].map, cfg.map)
     cpu_pool = nn_bruteforce.pool_from_map(states["cpu"].map, cfg.map)
     assert pool.shape == cpu_pool.shape
+
+
+@pytest.mark.parametrize("case", ["f32_w128", "f32_w512", "i32_broadcast", "lanes"])
+def test_probe_gathers_match_plain(dev, case):
+    rng = np.random.default_rng(7)
+    c, n = 8192, 2048
+    if case == "lanes":
+        table = torch.from_numpy(rng.normal(size=(8, c)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, c, (8, n)).astype(np.int32)).to(dev)
+        fn, plain, name = probes.take_lanes, probes.take_lanes_plain, "take_lanes"
+    else:
+        w = 512 if case == "f32_w512" else 128
+        if case == "i32_broadcast":
+            table = rng.integers(0, 1 << 30, (c, w)).astype(np.int32)
+            idx = rng.integers(0, c, (n, 1)).astype(np.int32)
+        else:
+            table = rng.normal(size=(c, w)).astype(np.float32)
+            idx = rng.integers(0, c, (n, w)).astype(np.int32)
+        table, idx = torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+        fn, plain, name = probes.take_rows, probes.take_rows_plain, "take_rows"
+    before = _common.LAUNCHES[name]
+    out = fn(table, idx)
+    assert _common.LAUNCHES[name] == before + 1
+    ref = plain(table, idx)
+    assert out.dtype == ref.dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("nq,nc,n_inner", [(4096, 80, 8), (1000, 16, 3)])
+def test_gn_proto_kernel_matches_plain(dev, nq, nc, n_inner):
+    x = probe_tool.gn_inputs(dev, nq=nq, nc=nc)
+    args = (x["q"], x["qmask"], x["cand"], x["scal"], n_inner)
+    before = _common.LAUNCHES["gn_proto"]
+    out = probes.gn_proto(*args).cpu().numpy()
+    assert _common.LAUNCHES["gn_proto"] == before + 1
+    ref = probes.gn_proto_plain(*args).cpu().numpy()
+    np.testing.assert_allclose(out[:12], ref[:12], rtol=0, atol=1e-5)
+    assert out[12] == ref[12]
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_lio_drive_card_matches_cpu(dev, backend):
+    from lidar_imu_slam_tpu_torch.models import lio
+
+    cfg = cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
+                             store_points=backend == "xla"),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20,
+                             gn_backend=backend),
+        ekf=cfgmod.EkfConfig(lidar_pose_trail=4),
+        imu=cfgmod.ImuConfig(max_init_count=20, max_samples_per_scan=16),
+    )
+    n = 5
+    world = synthetic.make_world(seed=11, n_points=30000, extent=(40.0, 12.0, 5.0))
+    gt = synthetic.make_trajectory(n_poses=n, speed=3.0, yaw_rate=0.02, dt=0.1)
+    packets = synthetic.imu_packets(*synthetic.make_imu_stream(gt, 0.1, imu_rate=100.0), n)
+    states = {d: lio.init_state(cfg, d) for d in (dev, "cpu")}
+    _common.reset_launches()
+    for i in range(n):
+        pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[min(i + 1, n - 1)], 0.1,
+                                                 1500, 0.5, 30.0, noise=0.01, seed=i)
+        poses = []
+        for d in (dev, "cpu"):
+            raw = pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1, max_points=2048,
+                                device=d)
+            pkt = lio.pack_imu_packet(*packets[i], 16, device=d)
+            states[d], out = lio.step(states[d], preprocess_scan(raw, cfg.lidar), pkt, cfg)
+            poses.append(out.pose.cpu())
+        torch.testing.assert_close(poses[0], poses[1], rtol=0, atol=1e-4)
+    assert bool(out.used_imu)
+    assert _common.LAUNCHES["pose_pre"] == (n if backend == "pallas" else 0)

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from lidar_imu_slam_tpu_torch import config as cfgmod
-from lidar_imu_slam_tpu_torch.ops.kernels import _build, _common, icp_gn, nn_bruteforce, pose_chain
+from lidar_imu_slam_tpu_torch.ops.kernels import (_build, _common, icp_gn, nn_bruteforce, pose_chain,
+                                                  probes)
 from lidar_imu_slam_tpu_torch.ops.preprocess import Scan
 from lidar_imu_slam_tpu_torch.parallel import streams
 
@@ -58,6 +59,7 @@ def no_library(monkeypatch):
     monkeypatch.setattr(icp_gn, "_fn", None)
     monkeypatch.setattr(icp_gn, "_fn_batched", None)
     monkeypatch.setattr(nn_bruteforce, "_fn", None)
+    monkeypatch.setattr(probes, "_fns", {})
 
     def forbidden(*a, **k):
         raise AssertionError("plain version called for non-CPU tensors")
@@ -67,10 +69,13 @@ def no_library(monkeypatch):
     monkeypatch.setattr(icp_gn, "fused_gn_carry_ref", forbidden)
     monkeypatch.setattr(icp_gn, "fused_gn_batched_ref", forbidden)
     monkeypatch.setattr(nn_bruteforce, "nn_bruteforce_plain", forbidden)
+    for name in ("take_rows_plain", "take_lanes_plain", "gn_proto_plain"):
+        monkeypatch.setattr(probes, name, forbidden)
 
 
 @pytest.mark.parametrize("kernel", ["pose_pre", "pose_post", "fused_gn_carry", "fused_gn",
-                                    "fused_gn_batched", "nn_bruteforce"])
+                                    "fused_gn_batched", "nn_bruteforce", "take_rows",
+                                    "take_lanes", "gn_proto"])
 def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
     f64, f32, i32 = torch.float64, torch.float32, torch.int32
     before = dict(_common.LAUNCHES)
@@ -92,8 +97,38 @@ def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
         elif kernel == "fused_gn_batched":
             icp_gn.fused_gn_batched(_meta((8, 3, 256), f32), _meta((8, 256), f32),
                                     _meta((8, 3, 80, 256), f32), _meta((8, 8), f64), 4)
-        else:
+        elif kernel == "nn_bruteforce":
             nn_bruteforce.nn_bruteforce(_meta((4096, 3), f32), _meta((3, 8192), f32))
+        elif kernel == "take_rows":
+            probes.take_rows(_meta((8192, 128), f32), _meta((2048, 1), i32))
+        elif kernel == "take_lanes":
+            probes.take_lanes(_meta((8, 8192), f32), _meta((8, 2048), i32))
+        else:
+            probes.gn_proto(_meta((3, 256), f32), _meta((256,), torch.bool),
+                            _meta((3, 16, 256), f32), _meta((2,), f32), 8)
+    assert _common.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["take_rows", "take_lanes", "gn_proto"])
+def test_probe_wrappers_take_the_plain_version_on_cpu(monkeypatch, kernel):
+    # the library is never loaded for CPU tensors, and nothing is counted
+    monkeypatch.setattr(_build, "load", _fail_load)
+    monkeypatch.setattr(probes, "_fns", {})
+    before = dict(_common.LAUNCHES)
+    if kernel == "take_rows":
+        table = torch.arange(32, dtype=torch.int32).reshape(8, 4)
+        out = probes.take_rows(table, torch.tensor([[3], [0], [7]], dtype=torch.int32))
+        assert out.tolist() == [table[3].tolist(), table[0].tolist(), table[7].tolist()]
+    elif kernel == "take_lanes":
+        table = torch.arange(16, dtype=torch.float32).reshape(2, 8)
+        out = probes.take_lanes(table, torch.tensor([[7, 1], [0, 5]], dtype=torch.int32))
+        assert out.tolist() == [[7.0, 1.0], [8.0, 13.0]]
+    else:
+        q = torch.zeros(3, 32)
+        cand = torch.zeros(3, 4, 32)
+        out = probes.gn_proto(q, torch.ones(32, dtype=torch.bool), cand,
+                              torch.tensor([0.5, 4.0]), 2)
+        assert out.shape == (13,) and bool(torch.isfinite(out).all())
     assert _common.LAUNCHES == before
 
 

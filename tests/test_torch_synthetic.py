@@ -49,3 +49,26 @@ def test_ate_rmse_equal(align):
     assert jtraj.ate_rmse(est, gt, align=align) == ttraj.ate_rmse(est, gt, align=align)
     assert ttraj.ate_rmse(torch.from_numpy(est), gt, align=align) == ttraj.ate_rmse(
         est, gt, align=align)
+
+
+@pytest.mark.parametrize("kw", [dict(imu_rate=100.0),
+                                dict(imu_rate=200.0, accel_noise=0.05, gyro_noise=0.01, seed=4)])
+def test_make_imu_stream_equal(kw):
+    gt = jsyn.make_trajectory(n_poses=12, speed=8.0, yaw_rate=0.01, dt=0.1, n_static=2)
+    for a, b in zip(jsyn.make_imu_stream(gt, 0.1, **kw), tsyn.make_imu_stream(gt, 0.1, **kw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_imu_packets_slice_the_stream_per_scan():
+    # bench.py:_bench_lio's rule: packet i holds the first (at most 10)
+    # samples in [0.1 i, 0.1 (i + 1)), times + 1 ms
+    gt = tsyn.make_trajectory(n_poses=6, speed=8.0, yaw_rate=0.01, dt=0.1)
+    times, gyro, accel = tsyn.make_imu_stream(gt, 0.1, imu_rate=200.0)
+    packets = tsyn.imu_packets(times, gyro, accel, 6)
+    assert len(packets) == 6 and len(packets[-1][0]) == 1  # only t = 0.5 s lies past 0.5
+    for i, (t, g, a) in enumerate(packets[:-1]):
+        inside = np.flatnonzero((times >= i * 0.1) & (times < (i + 1) * 0.1))[:10]
+        assert len(t) == 10 and len(inside) == 10
+        np.testing.assert_array_equal(t, times[inside] + 1e-3)
+        np.testing.assert_array_equal(g, gyro[inside])
+        np.testing.assert_array_equal(a, accel[inside])
