@@ -11,11 +11,16 @@ Needs one CUDA card, nvcc, and this checkout (it drives
 3. kernels: K1 `fused_gn_carry`, K2 `pose_pre` and K3 `pose_post` held
    against their plain PyTorch versions on the card at main-path shapes
    (K1: N = 4096 queries x NC = 80 candidate slots from seeded synthetic
-   geometry), each timed beside its plain version with CUDA events;
+   geometry), each timed beside its plain version with CUDA events. The
+   GN cluster kernel's ptxas registers and spills, K1's cluster shape (C
+   CTAs a stream, at least 8 at N = 4096), a repeated launch bit-equal,
+   and K1 timed at cluster sizes 4, 8 and 16;
 4. batched kernels: K4 `fused_gn` (one stream, 4096 x 80) and K5
    `fused_gn_batched` at both batched deployments' shapes (8 streams x
    4096 queries x 80 slots; 256 x 512 x 16), held against their plain
-   versions per stream and timed beside them;
+   versions per stream and timed beside them; each launch's cluster shape,
+   a repeated launch bit-equal, K5 timed at cluster sizes 4, 8 and 16 (8
+   streams) and 1, 2 and 4 (256 streams);
 5. K6 `nn_bruteforce` at the classic path's shape (4096 queries x a
    1,310,720-entry pool, ~30% +inf, 256 exact ties): indices and d^2
    equal to the plain version's bit for bit, timed beside the plain
@@ -112,6 +117,10 @@ PROBE_REPLACES = {  # the tools/ Pallas probes each probe kernel ports
 # f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the stream's sleep ahead of a device-time measurement: 100M cycles, 50 ms
+# at the H100's 1.98 GHz boost clock (longer at lower clocks)
+SLEEP_CYCLES = 100_000_000
+SLEEP_MS = 50.0
 
 
 class SmokeFailure(RuntimeError):
@@ -167,6 +176,86 @@ def _gn_bound(q, qmask, cand, scal, rows, carry=None):
     iters = float(rows2[:, 14].sum())
     extra = (carry,) if carry is not None else ()
     return _bound_ms(_nbytes(q, qmask, cand, scal, rows, *extra), iters * n * (8.0 * nc + 40.0))
+
+
+def _ptxas_lines(entry: str) -> list[str]:
+    """ptxas' register and spill lines of the kernel whose mangled name
+    holds `entry`, from the build's nvcc log."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import _build
+
+    path = os.path.join(_build.BUILD_DIR, f"nvcc_{_build.source_hash()}.log")
+    lines, inside = [], False
+    with open(path) as f:
+        for line in f:
+            if "Compiling entry" in line:
+                inside = entry in line
+            elif inside and ("registers" in line or "spill" in line):
+                lines.append(line.strip())
+    return lines
+
+
+def _gn_cluster(what, n, nc, streams=1):
+    """Print and check one GN launch's cluster: C CTAs a stream of n
+    queries x nc slots, streams x C CTAs in all. Returns C."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+
+    c, per = icp_gn.launch_shape(n, nc)
+    print(f"{what}: cluster of C = {c} CTAs x {per} queries per stream, {streams * c} CTAs in "
+          f"total; {icp_gn.max_active_clusters(c)} clusters of {c} resident at most")
+    if n >= 4096:
+        _require(c >= 8, f"{what}: {c} CTAs per stream at N = {n}, fewer than 8")
+    return c
+
+
+def _same_twice(what, fn):
+    """Launch a GN kernel twice on the same inputs; the rows must be equal
+    bit for bit (rank-order cluster reduction)."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    _require(torch.equal(a, b), f"{what}: a repeated launch is not bit-equal")
+    print(f"{what}: repeated launch bit-equal")
+    return a
+
+
+def _device_ms(fn, reps: int) -> float:
+    """A kernel's device time per launch: the stream sleeps while the host
+    queues `reps` launches, so the events time the launches back to back,
+    free of the host's launch cost (which `_cuda_ms` includes when the
+    kernel is shorter)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    _require(queued * 1e3 < 0.5 * SLEEP_MS, f"device timing: queueing took {queued * 1e3:.1f} ms")
+    return ms
+
+
+def _cluster_sweep(what, launch, n, nc, sizes, reps=50):
+    """Device time of the GN kernel at other cluster sizes (the launch rule
+    picks one); returns {C: ms}."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+
+    times = {}
+    for c in sizes:
+        shape = icp_gn.cluster_shape(n, c)
+        times[shape[0]] = _device_ms(lambda: launch(shape), reps)
+    print(f"{what}: device ms/launch by cluster size " +
+          "  ".join(f"C={c}: {ms:.4f}" for c, ms in times.items()) +
+          f"  (rule: C={icp_gn.launch_shape(n, nc)[0]})")
+    return times
 
 
 def bench_cfg(cfgmod, points_per_scan: int, gn_backend: str = "pallas"):
@@ -233,7 +322,9 @@ def kernel_phase(dev, cfg):
                        torch.zeros(3, dtype=torch.float64, device=dev),
                        anchor.double()])
     inner = cfg.icp.fused_inner
-    k1 = icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner)
+    print("K1 / K4 / K5 gn_cluster_kernel, ptxas: " + "; ".join(_ptxas_lines("gn_cluster_kernel")))
+    c1 = _gn_cluster("K1 fused_gn_carry (4096 x 80)", n, cand.shape[1])
+    k1 = _same_twice("K1", lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner))
     k1_ref = icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner)
     torch.cuda.synchronize()
     a, b = k1.cpu().numpy(), k1_ref.cpu().numpy()
@@ -249,13 +340,19 @@ def kernel_phase(dev, cfg):
     ms = _cuda_ms(lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner), 50)
     plain_ms = _cuda_ms(lambda: icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner), 5)
     bound, by = _gn_bound(q, qmask, cand, scal, k1, carry)
-    print(f"K1 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  bound {bound:.5f} ms ({by})")
+    dev_ms = _device_ms(lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner), 50)
+    print(f"K1 {ms:.4f} ms/launch (device {dev_ms:.4f})  plain {plain_ms:.4f} ms/call  "
+          f"bound {bound:.5f} ms ({by})")
+    _cluster_sweep("K1 (4096 x 80)", lambda shape: icp_gn._launch(
+        "fused_gn_carry", q, qmask, cand, scal, carry, inner, 1, (16,), shape=shape), n,
+        cand.shape[1], (4, 8, 16))
     # no single PyTorch call computes a robust GN solve: library_ms is null
     results.append(dict(name="fused_gn_carry", route="cuda",
                         source="lidar_imu_slam_tpu_torch/csrc/icp_gn.cu",
                         replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:383",
                         max_abs_err=max(err_R, err_t), ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, library_ms=None))
+                        bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev_ms,
+                        cluster=c1, ctas=c1))
 
     # K2: seeded f64 pose state (5 poses: every branch live)
     f64 = dict(dtype=torch.float64, device=dev)
@@ -502,31 +599,42 @@ def batched_kernel_phase(dev, cfg, cfgmod):
     _require(tuple(mc[2].shape) == (MC_STREAMS, 3, 16, 512), f"K5 MC candidates {mc[2].shape}")
 
     one = tuple(t[0].contiguous() for t in hdl)
-    rows4 = icp_gn.fused_gn(*one, inner)
+    c4 = _gn_cluster("K4 fused_gn (1 x 4096 x 80)", one[0].shape[-1], one[2].shape[-2])
+    rows4 = _same_twice("K4", lambda: icp_gn.fused_gn(*one, inner))
     err4, _ = _rows_err(rows4, icp_gn.fused_gn_ref(*one, inner), "K4 fused_gn (1 x 4096 x 80)")
     ms4 = _cuda_ms(lambda: icp_gn.fused_gn(*one, inner), 50)
     plain4 = _cuda_ms(lambda: icp_gn.fused_gn_ref(*one, inner), 5)
     bound4, by4 = _gn_bound(*one, rows4)
-    print(f"K4 {ms4:.4f} ms/launch  plain {plain4:.4f} ms/call  bound {bound4:.5f} ms ({by4})")
+    dev4 = _device_ms(lambda: icp_gn.fused_gn(*one, inner), 50)
+    print(f"K4 {ms4:.4f} ms/launch (device {dev4:.4f})  plain {plain4:.4f} ms/call  "
+          f"bound {bound4:.5f} ms ({by4})")
 
-    errs, times, bounds = [], {}, {}
-    for name, args in (("8 x 4096 x 80", hdl), ("256 x 512 x 16", mc)):
-        rows = icp_gn.fused_gn_batched(*args, inner)
+    errs, times, bounds, shapes = [], {}, {}, {}
+    for name, args, sizes in (("8 x 4096 x 80", hdl, (4, 8, 16)),
+                              ("256 x 512 x 16", mc, (1, 2, 4))):
+        n_st, n, nc = args[0].shape[0], args[0].shape[-1], args[2].shape[-2]
+        shapes[name] = _gn_cluster(f"K5 fused_gn_batched ({name})", n, nc, n_st)
+        rows = _same_twice(f"K5 ({name})", lambda: icp_gn.fused_gn_batched(*args, inner))
         err, iters = _rows_err(rows, icp_gn.fused_gn_batched_ref(*args, inner),
                                f"K5 fused_gn_batched ({name})")
         _require(len(iters) > 1, f"K5 ({name}): every stream stopped at one count")
         errs.append(err)
         times[name] = (_cuda_ms(lambda: icp_gn.fused_gn_batched(*args, inner), 50),
-                       _cuda_ms(lambda: icp_gn.fused_gn_batched_ref(*args, inner), 5))
+                       _cuda_ms(lambda: icp_gn.fused_gn_batched_ref(*args, inner), 5),
+                       _device_ms(lambda: icp_gn.fused_gn_batched(*args, inner), 50))
         bounds[name] = _gn_bound(*args, rows)
-        print(f"K5 ({name}) {times[name][0]:.4f} ms/launch  plain {times[name][1]:.4f} ms/call"
-              f"  bound {bounds[name][0]:.5f} ms ({bounds[name][1]})")
+        print(f"K5 ({name}) {times[name][0]:.4f} ms/launch (device {times[name][2]:.4f})  "
+              f"plain {times[name][1]:.4f} ms/call  bound {bounds[name][0]:.5f} ms "
+              f"({bounds[name][1]})")
+        _cluster_sweep(f"K5 ({name})", lambda shape: icp_gn._launch(
+            "fused_gn_batched", *args, None, inner, n_st, (n_st, 16), shape=shape), n, nc,
+            sizes)
     src = "lidar_imu_slam_tpu_torch/csrc/icp_gn.cu"
     return [
         dict(name="fused_gn", route="cuda", source=src,
              replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:281",
              max_abs_err=err4, ms=ms4, plain_ms=plain4, bound_ms=bound4, bound_by=by4,
-             library_ms=None),
+             library_ms=None, device_ms=dev4, cluster=c4, ctas=c4),
         dict(name="fused_gn_batched", route="cuda", source=src,
              replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:415",
              max_abs_err=max(errs), ms=times["8 x 4096 x 80"][0],
@@ -535,7 +643,11 @@ def batched_kernel_phase(dev, cfg, cfgmod):
              library_ms=None,
              ms_256x512x16=times["256 x 512 x 16"][0],
              plain_ms_256x512x16=times["256 x 512 x 16"][1],
-             bound_ms_256x512x16=bounds["256 x 512 x 16"][0]),
+             bound_ms_256x512x16=bounds["256 x 512 x 16"][0],
+             device_ms=times["8 x 4096 x 80"][2], device_ms_256x512x16=times["256 x 512 x 16"][2],
+             cluster=shapes["8 x 4096 x 80"], ctas=STREAMS * shapes["8 x 4096 x 80"],
+             cluster_256x512x16=shapes["256 x 512 x 16"],
+             ctas_256x512x16=MC_STREAMS * shapes["256 x 512 x 16"]),
     ]
 
 

@@ -20,12 +20,13 @@
 // consecutive columns, so every index load, table load and store of a warp
 // is one coalesced 128-byte transaction (take_lanes' table loads are
 // scattered within a 32 KB row, which stays in L1/L2). gn_proto reads its
-// 3.9 MB of candidates once per iteration; its design is the simple one of
-// K1: ONE block of 1024 threads strides over the queries, each thread keeps
+// 3.9 MB of candidates once per iteration; its design is the simple one
+// block: ONE block of 1024 threads strides over the queries, each thread keeps
 // 16 f32 partial sums (and the correspondence count), a warp-shuffle +
 // shared-memory tree reduces them, and thread 0 solves, exponentiates and
 // composes in f32 and hands the carried pose to the block through shared
-// memory. One block reads through one SM: far above the byte bound, as K1.
+// memory. One block reads through one SM: far above the byte bound (K1, K4
+// and K5 in icp_gn.cu spread a stream over a thread-block cluster instead).
 //
 // Rounding: every f32 step of gn_proto's per-query work and of the solve is
 // rounded as written (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn /

@@ -11,6 +11,14 @@ candidate, residual, weight) is f32; the weighted sums, the 6x6 solve and
 the pose are f64 — the TPU kernels carried everything in f32 (K1 plus
 float-float translations).
 
+On the card the three are one kernel, `gn_cluster_kernel` in
+`csrc/icp_gn.cu`: each stream is a thread-block cluster of C CTAs that
+split its queries (`launch_shape`: C from the stream's N x NC candidate
+reads, 16 CTAs at the main path's 4096 x 80), add their f64 sums into CTA
+rank 0 in rank order (repeated launches give bit-equal rows) and take the
+solve from it, one launch per ICP round. K1 and K4 are its launches with
+one stream, K1 with the carry epilogue.
+
 Layouts (K1 and K4; K5 adds a leading S to q, qmask, cand and scal):
   q      (3, N) f32       queries centred on the anchor
   qmask  (N,) f32         1.0 = valid query
@@ -36,33 +44,65 @@ from ._common import LAUNCHES, expect, expect_cuda, on_cpu, stream_handle
 OUT_WIDTH = 16
 F32 = torch.float32
 F64 = torch.float64
+SLOTS_PER_CTA = 256 * 80  # query-slot pairs a CTA reads per iteration (245 KB)
+MAX_CLUSTER = 16  # kMaxCluster in csrc/icp_gn.cu (above 8: a non-portable size)
 
-_fn = None  # K1
-_fn_batched = None  # K4 / K5
+_fn = None  # the launcher of K1, K4 and K5
+_cluster_ok: set[tuple[int, int]] = set()  # (device, C) shapes checked resident
 
 
-def _bind(name: str, n_ptr_in: int, n_int: int):
-    """A launcher of the library: n_ptr_in pointers, n_int ints, then the
-    output pointer and the stream."""
-    fn = getattr(_build.load(), name)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * n_ptr_in + [i] * n_int + [vp, vp]
-    fn.restype = ctypes.c_int
-    return fn
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cluster_shape(n: int, clusters: int) -> tuple[int, int]:
+    """Split N queries over at most `clusters` CTAs: returns (C, queries per
+    CTA). Each slice starts on a multiple of 32 queries (whole warps on
+    128-byte lines), none is empty, and C x per covers N."""
+    n = max(int(n), 1)
+    per = _cdiv(_cdiv(n, clusters), 32) * 32
+    return _cdiv(n, per), per
+
+
+def launch_shape(n: int, nc: int) -> tuple[int, int]:
+    """The cluster of one stream of N queries x NC candidate slots: about
+    SLOTS_PER_CTA query-slot pairs per CTA (256 queries at the main path's
+    80 slots), at most MAX_CLUSTER CTAs. (C, queries per CTA)."""
+    return cluster_shape(n, min(MAX_CLUSTER, _cdiv(max(int(n) * int(nc), 1), SLOTS_PER_CTA)))
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        _fn = _bind("lis_fused_gn_carry", 5, 3)
+        fn = _build.load().lis_fused_gn
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 5 + [i] * 6 + [vp, vp]
+        fn.restype = ctypes.c_int
+        _fn = fn
     return _fn
 
 
-def _kernel_batched():
-    global _fn_batched
-    if _fn_batched is None:
-        _fn_batched = _bind("lis_fused_gn_batched", 4, 4)
-    return _fn_batched
+def max_active_clusters(clusters: int) -> int:
+    """How many clusters of `clusters` CTAs of the GN kernel the current
+    card holds at once (cudaOccupancyMaxActiveClusters), after allowing
+    sizes above 8."""
+    fn = _build.load().lis_gn_cluster_check
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    active = ctypes.c_int(0)
+    _build.check(fn(clusters, ctypes.byref(active)), f"fused GN cluster check (C = {clusters})")
+    return active.value
+
+
+def _check_cluster(device: torch.device, clusters: int) -> None:
+    """At the first launch of a cluster size on a device: raise unless at
+    least one such cluster can be resident."""
+    key = (device.index, clusters)
+    if key not in _cluster_ok:
+        if max_active_clusters(clusters) < 1:
+            raise RuntimeError(f"fused GN: no cluster of {clusters} CTAs can be resident on "
+                               f"{torch.cuda.get_device_name(device)}")
+        _cluster_ok.add(key)
 
 
 def _gn_update(S, R, t, conv, stale, ncorr_o, rms_o, iters, scal):
@@ -235,6 +275,23 @@ def fused_gn_batched_ref(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
 fused_gn_ref = fused_gn_batched_ref
 
 
+def _launch(name, q, qmask, cand, scal, carry, n_inner, streams, out_shape, shape=None):
+    """Launch the cluster kernel: `streams` clusters of `shape` (default
+    `launch_shape(N, NC)`) on CUDA tensors; carry None for K4 / K5."""
+    fn = _kernel()
+    expect_cuda(*(t for t in (q, qmask, cand, scal, carry) if t is not None))
+    n, nc = q.shape[-1], cand.shape[-2]
+    clusters, per_cta = shape or launch_shape(n, nc)
+    _check_cluster(q.device, clusters)
+    out = torch.empty(out_shape, dtype=F64, device=q.device)
+    status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(),
+                None if carry is None else carry.data_ptr(), n, nc, int(n_inner),
+                streams, clusters, per_cta, out.data_ptr(), stream_handle(q.device))
+    _build.check(status, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def fused_gn_carry(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tensor:
     """Run one fused ICP round (see module docstring). CPU tensors: the
     plain version; CUDA tensors: kernel K1."""
@@ -244,35 +301,9 @@ def fused_gn_carry(q, qmask, cand, scal, carry, n_inner: int) -> torch.Tensor:
     expect("cand", cand, F32, (3, None, n))
     expect("scal", scal, F64, (8,))
     expect("carry", carry, F64, (15,))
-    args = (q, qmask, cand, scal, carry)
-    if on_cpu(*args):
+    if on_cpu(q, qmask, cand, scal, carry):
         return fused_gn_carry_ref(q, qmask, cand, scal, carry, n_inner)
-    fn = _kernel()
-    expect_cuda(*args)
-    out = torch.empty(OUT_WIDTH, dtype=F64, device=q.device)
-    status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(),
-                carry.data_ptr(), n, cand.shape[1], int(n_inner), out.data_ptr(),
-                stream_handle(q.device))
-    _build.check(status, "fused_gn_carry")
-    LAUNCHES["fused_gn_carry"] += 1
-    return out
-
-
-def _launch_batched(name, q, qmask, cand, scal, n_inner, streams, out_shape):
-    """Launch K4 / K5 (one kernel, one block per stream) or run the plain
-    version on CPU tensors."""
-    args = (q, qmask, cand, scal)
-    if on_cpu(*args):
-        return fused_gn_batched_ref(q, qmask, cand, scal, n_inner)
-    fn = _kernel_batched()
-    expect_cuda(*args)
-    out = torch.empty(out_shape, dtype=F64, device=q.device)
-    status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(),
-                q.shape[-1], cand.shape[-2], int(n_inner), streams, out.data_ptr(),
-                stream_handle(q.device))
-    _build.check(status, name)
-    LAUNCHES[name] += 1
-    return out
+    return _launch("fused_gn_carry", q, qmask, cand, scal, carry, n_inner, 1, (OUT_WIDTH,))
 
 
 def fused_gn(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
@@ -283,16 +314,19 @@ def fused_gn(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
     expect("qmask", qmask, F32, (n,))
     expect("cand", cand, F32, (3, None, n))
     expect("scal", scal, F64, (8,))
-    return _launch_batched("fused_gn", q, qmask, cand, scal, n_inner, 1, (OUT_WIDTH,))
+    if on_cpu(q, qmask, cand, scal):
+        return fused_gn_batched_ref(q, qmask, cand, scal, n_inner)
+    return _launch("fused_gn", q, qmask, cand, scal, None, n_inner, 1, (OUT_WIDTH,))
 
 
 def fused_gn_batched(q, qmask, cand, scal, n_inner: int) -> torch.Tensor:
-    """Kernel K5: K4 over a leading stream axis, one thread block per
-    stream; returns (S, 16) rows. CPU tensors: the plain version."""
+    """Kernel K5: K4 over a leading stream axis, one thread-block cluster
+    per stream; returns (S, 16) rows. CPU tensors: the plain version."""
     expect("q", q, F32, (None, 3, None))
     s, n = q.shape[0], q.shape[2]
     expect("qmask", qmask, F32, (s, n))
     expect("cand", cand, F32, (s, 3, None, n))
     expect("scal", scal, F64, (s, 8))
-    return _launch_batched("fused_gn_batched", q, qmask, cand, scal, n_inner, s,
-                           (s, OUT_WIDTH))
+    if on_cpu(q, qmask, cand, scal):
+        return fused_gn_batched_ref(q, qmask, cand, scal, n_inner)
+    return _launch("fused_gn_batched", q, qmask, cand, scal, None, n_inner, s, (s, OUT_WIDTH))

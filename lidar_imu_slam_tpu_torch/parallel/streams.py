@@ -7,8 +7,8 @@ tables (S, C), (S, G), (S, C, Kp), scalars (S,), poses (S, 4, 4) f64), each
 table the front view of one flat (S*G + 1,) buffer, and one call of
 `models.kiss_icp.register_frame_classic` registers all S streams: batched
 sorts and stream-offset gathers / scatters in plain torch, and per ICP
-round one launch of kernel K5 (`fused_gn_batched`, one thread block per
-stream) with gn_backend="pallas", or the f64 GN iterations of
+round one launch of kernel K5 (`fused_gn_batched`, one thread-block
+cluster per stream) with gn_backend="pallas", or the f64 GN iterations of
 `icp_registration_unrolled` with gn_backend="xla". No step reads the
 device from the host.
 """

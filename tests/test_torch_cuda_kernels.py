@@ -9,7 +9,8 @@ imports no JAX, so it also runs on a machine without it:
 
 Tolerances: K2 / K3 1e-9 (both sides f64, different operation order); K1,
 K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
-1 (the f32 per-query work may contract into FMAs in the kernel); K6
+1 (the f32 per-query work may contract into FMAs in the kernel), and a
+repeated launch bit-equal (the cluster's fixed-order reduction); K6
 indices equal and d^2 bit-equal (it rounds every f32 step as the plain
 version does); card against CPU poses 1e-4 over a short drive,
 single-stream or batched, fast or classic; the probe gathers `take_rows`
@@ -80,25 +81,44 @@ def test_pose_post_kernel_matches_plain(dev, diverge):
     assert float(post[12]) == float(diverge)
 
 
-@pytest.mark.parametrize("offset", [0.0, 300.0])
-@pytest.mark.parametrize("n_inner", [1, 6])
-def test_fused_gn_carry_kernel_matches_plain(dev, offset, n_inner):
+def _twice(fn, *args):
+    """Launch a GN kernel twice on the same inputs: the rows must be equal
+    bit for bit (the cluster adds its CTA sums in rank order)."""
+    row = fn(*args)
+    again = fn(*args)
+    assert torch.equal(row, again)
+    return row
+
+
+def _k1_inputs(dev, n, offset):
+    """A map of 4096 uniform points, its first n points shifted by (0.25,
+    -0.15, 0.1) as the source, centred on their mean."""
     cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 13, neighborhood=8)
     rng = np.random.default_rng(0)
     world = torch.from_numpy(rng.uniform(-18, 18, (4096, 3)).astype(np.float32) + offset).to(dev)
     g = voxel_map.fused_downsample(world, torch.ones(4096, dtype=torch.bool, device=dev),
                                    cfg.voxel_size, 4096)
     m = voxel_map.insert_grouped(voxel_map.create(cfg, dev), g, cfg)
-    src = world[:1024] - torch.tensor([0.25, -0.15, 0.1], device=dev)
+    src = world[:n] - torch.tensor([0.25, -0.15, 0.1], device=dev)
     anchor = src.mean(0)
     q = (src - anchor).T.contiguous()
-    mask = torch.ones(1024, dtype=torch.bool, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
     cand = voxel_map.gather_candidate_planes_packed(m, src, mask, cfg, anchor).contiguous()
     scal = torch.tensor([0.5, 2.25, 1e-5, 20.0, 2.0, 0.25, 0.0, 0.0], dtype=F64, device=dev)
     carry = torch.cat([torch.eye(3, dtype=F64, device=dev).reshape(9),
                        torch.zeros(3, dtype=F64, device=dev), anchor.double()])
-    qm = mask.float()
-    row = icp_gn.fused_gn_carry(q, qm, cand, scal, carry, n_inner).cpu().numpy()
+    return q, mask.float(), cand, scal, carry
+
+
+# N: the test's 1024, one CTA (128), a ragged last CTA (1000), the main path
+@pytest.mark.parametrize("n", [1024, 128, 1000, 4096])
+@pytest.mark.parametrize("offset", [0.0, 300.0])
+@pytest.mark.parametrize("n_inner", [1, 6])
+def test_fused_gn_carry_kernel_matches_plain(dev, offset, n_inner, n):
+    q, qm, cand, scal, carry = _k1_inputs(dev, n, offset)
+    before = _common.LAUNCHES["fused_gn_carry"]
+    row = _twice(icp_gn.fused_gn_carry, q, qm, cand, scal, carry, n_inner).cpu().numpy()
+    assert _common.LAUNCHES["fused_gn_carry"] == before + 2
     ref = icp_gn.fused_gn_carry_ref(q, qm, cand, scal, carry, n_inner).cpu().numpy()
     np.testing.assert_allclose(row[:9], ref[:9], atol=1e-5)
     np.testing.assert_allclose(row[9:12], ref[9:12], atol=1e-4)
@@ -140,24 +160,68 @@ def _check_rows(rows, ref):
     assert np.abs(rows[:, 12] - ref[:, 12]).max() <= 1
 
 
+@pytest.mark.parametrize("n", [1024, 128, 1000, 4096])
 @pytest.mark.parametrize("n_inner", [1, 4])
-def test_fused_gn_kernel_matches_plain(dev, n_inner):
-    q, qm, cand, scal = (t[0].contiguous() for t in _gn_streams(dev, 1, 1024))
+def test_fused_gn_kernel_matches_plain(dev, n_inner, n):
+    q, qm, cand, scal = (t[0].contiguous() for t in _gn_streams(dev, 1, n))
     before = _common.LAUNCHES["fused_gn"]
-    row = icp_gn.fused_gn(q, qm, cand, scal, n_inner)
-    assert _common.LAUNCHES["fused_gn"] == before + 1
+    row = _twice(icp_gn.fused_gn, q, qm, cand, scal, n_inner)
+    assert _common.LAUNCHES["fused_gn"] == before + 2
     _check_rows(row, icp_gn.fused_gn_ref(q, qm, cand, scal, n_inner))
 
 
-@pytest.mark.parametrize("n_streams,n", [(8, 1024), (64, 256)])
+@pytest.mark.parametrize("n_streams,n", [(8, 1024), (64, 256), (8, 4096), (16, 1000),
+                                         (256, 512)])
 def test_fused_gn_batched_kernel_matches_plain(dev, n_streams, n):
     q, qm, cand, scal = _gn_streams(dev, n_streams, n, seed=n_streams)
     before = _common.LAUNCHES["fused_gn_batched"]
-    rows = icp_gn.fused_gn_batched(q, qm, cand, scal, 4)
-    assert _common.LAUNCHES["fused_gn_batched"] == before + 1
+    rows = _twice(icp_gn.fused_gn_batched, q, qm, cand, scal, 4)
+    assert _common.LAUNCHES["fused_gn_batched"] == before + 2
     ref = icp_gn.fused_gn_batched_ref(q, qm, cand, scal, 4)
     _check_rows(rows, ref)
     assert len(set(ref[:, 14].tolist())) > 1  # streams stopped at different counts
+
+
+@pytest.mark.parametrize("case", ["cta_masked", "all_masked", "stale"])
+@pytest.mark.parametrize("kernel", ["fused_gn_carry", "fused_gn", "fused_gn_batched"])
+def test_gn_kernel_edge_cases_match_plain(dev, kernel, case):
+    """At N = 4096 (16 CTAs a stream): the second CTA's whole slice masked
+    out; every query masked (frozen after one iteration at the identity);
+    a stale bound below the first step's drift (frozen stale)."""
+    n = 4096
+    if kernel == "fused_gn_carry":
+        q, qm, cand, scal, carry = _k1_inputs(dev, n, 0.0)
+        args = (q, qm, cand, scal, carry, 6)
+        fn, ref_fn = icp_gn.fused_gn_carry, icp_gn.fused_gn_carry_ref
+    else:
+        q, qm, cand, scal = _gn_streams(dev, 4, n, seed=5)
+        if kernel == "fused_gn":
+            q, qm, cand, scal = (t[0].contiguous() for t in (q, qm, cand, scal))
+            fn, ref_fn = icp_gn.fused_gn, icp_gn.fused_gn_ref
+        else:
+            fn, ref_fn = icp_gn.fused_gn_batched, icp_gn.fused_gn_batched_ref
+        args = (q, qm, cand, scal, 4)
+    clusters, per = icp_gn.launch_shape(n, cand.shape[-2])
+    assert clusters >= 8
+    if case == "cta_masked":
+        qm[..., per:2 * per] = 0.0
+    elif case == "all_masked":
+        qm.zero_()
+    else:
+        scal[..., 5] = 1e-6
+    row = _twice(fn, *args)
+    ref = ref_fn(*args)
+    _check_rows(row, ref)
+    flat = ref.cpu().numpy().reshape(-1, 16)
+    if case == "all_masked":
+        assert (flat[:, 14] == 1).all() and (flat[:, 15] == 1).all()  # one frozen iteration
+        assert (flat[:, 12] == 0).all()
+        eye = np.eye(3).reshape(9)
+        np.testing.assert_array_equal(row.cpu().numpy().reshape(-1, 16)[:, :9],
+                                      np.broadcast_to(eye, (flat.shape[0], 9)))
+        np.testing.assert_array_equal(row.cpu().numpy().reshape(-1, 16)[:, 9:12], 0.0)
+    elif case == "stale":
+        assert (flat[:, 15] == 2).all()
 
 
 def test_batched_drive_card_matches_cpu(dev):

@@ -57,7 +57,6 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_build, "load", _fail_load)
     monkeypatch.setattr(pose_chain, "_fns", {})
     monkeypatch.setattr(icp_gn, "_fn", None)
-    monkeypatch.setattr(icp_gn, "_fn_batched", None)
     monkeypatch.setattr(nn_bruteforce, "_fn", None)
     monkeypatch.setattr(probes, "_fns", {})
 
