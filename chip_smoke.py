@@ -31,9 +31,14 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    rows hold `take_rows` (P1, P4 f32 W = 128 and 512, P4 i32 broadcast)
    and `take_lanes` (P2) bit-equal to their plain versions and `gn_proto`
    (P3, 4096 x 80 x 8 iterations) within GN_TOL with an equal conv, each
-   timed beside its plain version and (gathers) the PyTorch library gather;
+   timed beside its plain version and (gathers) the PyTorch library call
+   that computes the same function: per call (CUDA events over back-to-back
+   calls), on the device (calls queued behind a stream sleep) and on the
+   host (enqueue time), for the kernel and for the library call alike;
 6. small drives: 5 scans of a small configuration on the card and on the
-   CPU, fast path (kernels) and classic f64 path (gn_backend="xla"), and
+   CPU, fast path (kernels; candidates from the packed slab, and with
+   packed_nn=False from the f32 point slab) and classic f64 path
+   (gn_backend="xla"), and
    3 classic streams x 5 scans under `batch_config` — poses must agree;
    then the tiny LIO deployment (`__graft_entry__._tiny_cfg`) over 8 scans
    on both registration branches, static init completing at scan 1 —
@@ -63,7 +68,7 @@ Needs one CUDA card, nvcc, and this checkout (it drives
 10. small batched drive: 3 streams x 5 small scans under `batch_config` on
    the card and on the CPU, and 5 scans of one stream through
    `register_frame` under `batch_config` (kernel K4, counted) — poses must
-   agree;
+   agree; the same again with packed_nn=False (the f32-slab fetch);
 11. multi-stream: the deployment of bench.py:_bench_batched_chained — the
    HDL-64E config under `batch_config` (2 x 4 unroll), 8 streams x 60
    scans of the slice's drive, stream s at step i on scan min(i + s, 59).
@@ -117,10 +122,6 @@ PROBE_REPLACES = {  # the tools/ Pallas probes each probe kernel ports
 # f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# the stream's sleep ahead of a device-time measurement: 100M cycles, 50 ms
-# at the H100's 1.98 GHz boost clock (longer at lower clocks)
-SLEEP_CYCLES = 100_000_000
-SLEEP_MS = 50.0
 
 
 class SmokeFailure(RuntimeError):
@@ -220,27 +221,16 @@ def _same_twice(what, fn):
 
 
 def _device_ms(fn, reps: int) -> float:
-    """A kernel's device time per launch: the stream sleeps while the host
-    queues `reps` launches, so the events time the launches back to back,
-    free of the host's launch cost (which `_cuda_ms` includes when the
-    kernel is shorter)."""
-    import torch
+    """A kernel's device time per launch (the probe entry point's
+    `device_ms`): the stream sleeps while the host queues `reps` launches,
+    so the events time the launches back to back, free of the host's
+    launch cost (which `_cuda_ms` includes when the kernel is shorter)."""
+    from lidar_imu_slam_tpu_torch.tools import probes as tp
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    end.record()
-    queued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    _require(queued * 1e3 < 0.5 * SLEEP_MS, f"device timing: queueing took {queued * 1e3:.1f} ms")
-    return ms
+    try:
+        return tp.device_ms(fn, reps)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
 
 
 def _cluster_sweep(what, launch, n, nc, sizes, reps=50):
@@ -401,8 +391,10 @@ def kernel_phase(dev, cfg):
     return results
 
 
-def small_drive_phase(dev):
-    """5 small scans through register_frame on the card and on the CPU."""
+def small_drive_phase(dev, packed_nn=True):
+    """5 small scans through register_frame on the card and on the CPU; the
+    candidates come from the packed slab, or with packed_nn=False from the
+    f32 point slab (`voxel_map.gather_candidate_planes`)."""
     from lidar_imu_slam_tpu_torch import config as cfgmod
     from lidar_imu_slam_tpu_torch.host import synthetic
     from lidar_imu_slam_tpu_torch.models import kiss_icp
@@ -412,12 +404,13 @@ def small_drive_phase(dev):
         lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
                                  sort_by_time=False, time_source="per_point"),
         map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
-                             neighborhood=8, store_points=False),
+                             neighborhood=8, store_points=not packed_nn, packed_nn=packed_nn),
         icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
                              max_iterations=20, gn_backend="pallas", deskew=True),
     )
     world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
     gt = synthetic.make_trajectory(n_poses=5, speed=2.0, yaw_rate=0.03, dt=0.1)
+    slab = "packed slab" if packed_nn else "f32 slab"
     states = {d: kiss_icp.init_state(cfg, d) for d in (dev, "cpu")}
     worst = 0.0
     for i in range(5):
@@ -430,8 +423,9 @@ def small_drive_phase(dev):
             states[d], out = kiss_icp.register_frame(states[d], preprocess_scan(raw, cfg.lidar), cfg)
             poses[d] = out.pose.cpu().numpy()
         worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
-    print(f"small drive: card (kernels) vs CPU (plain) max|d pose| {worst:.3e} (tol 1e-4)")
-    _require(worst <= 1e-4, "small drive: card and CPU poses disagree")
+    print(f"small drive ({slab}): card (kernels) vs CPU (plain) max|d pose| {worst:.3e} "
+          f"(tol 1e-4)")
+    _require(worst <= 1e-4, f"small drive ({slab}): card and CPU poses disagree")
 
 
 def _ate(poses, gt, shift=0.5):
@@ -663,9 +657,11 @@ def _no_sync(fn):
         torch.cuda.set_sync_debug_mode(0)
 
 
-def small_batched_phase(dev):
+def small_batched_phase(dev, packed_nn=True):
     """3 streams x 5 small scans under batch_config on the card and the
-    CPU; then one stream through register_frame under batch_config (K4)."""
+    CPU; then one stream through register_frame under batch_config (K4).
+    Candidates from the packed slab, or with packed_nn=False from the f32
+    point slab."""
     from lidar_imu_slam_tpu_torch import config as cfgmod
     from lidar_imu_slam_tpu_torch.host import synthetic
     from lidar_imu_slam_tpu_torch.models import kiss_icp
@@ -678,10 +674,12 @@ def small_batched_phase(dev):
         lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
                                  sort_by_time=False, time_source="per_point"),
         map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12,
-                             neighborhood=8, store_points=False, max_insert_voxels=700),
+                             neighborhood=8, store_points=not packed_nn, packed_nn=packed_nn,
+                             max_insert_voxels=700),
         icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512,
                              max_iterations=20, gn_backend="pallas", deskew=True),
     ))
+    slab = "packed slab" if packed_nn else "f32 slab"
     world = synthetic.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
     gt = synthetic.make_trajectory(n_poses=8, speed=2.0, yaw_rate=0.03, dt=0.1)
     raws = []
@@ -703,8 +701,9 @@ def small_batched_phase(dev):
             states[d], out = streams.batched_register_frame_step(states[d], scans, cfg)
             poses[d] = out.pose.cpu().numpy()
         worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
-    print(f"small batched drive (3 streams): card vs CPU max|d pose| {worst:.3e} (tol 1e-4)")
-    _require(worst <= 1e-4, "small batched drive: card and CPU poses disagree")
+    print(f"small batched drive (3 streams, {slab}): card vs CPU max|d pose| {worst:.3e} "
+          f"(tol 1e-4)")
+    _require(worst <= 1e-4, f"small batched drive ({slab}): card and CPU poses disagree")
 
     single = {d: kiss_icp.init_state(cfg, d) for d in (dev, "cpu")}
     worst = 0.0
@@ -717,9 +716,10 @@ def small_batched_phase(dev):
             poses[d] = out.pose.cpu().numpy()
         worst = max(worst, float(np.abs(poses[dev] - poses["cpu"]).max()))
     launches = dict(_common.LAUNCHES)
-    print(f"single stream under batch_config: card vs CPU max|d pose| {worst:.3e} (tol 1e-4)  "
-          f"launches {launches}")
-    _require(worst <= 1e-4, "single-stream batch_config drive: card and CPU poses disagree")
+    print(f"single stream under batch_config ({slab}): card vs CPU max|d pose| {worst:.3e} "
+          f"(tol 1e-4)  launches {launches}")
+    _require(worst <= 1e-4, f"single-stream batch_config drive ({slab}): card and CPU poses "
+             "disagree")
     expect_k4 = 5 * cfg.icp.batch_unroll_outer
     _require(launches["fused_gn"] == expect_k4, f"K4 launched {launches['fused_gn']} "
              f"times, not {expect_k4}")
@@ -1097,8 +1097,9 @@ def probe_phase(dev):
     card; the counts of this run are the probe path's launches. Each row of
     the entry point holds one kernel case against its plain version (the
     gathers bit-equal in every case, gn_proto within GN_TOL with an equal
-    conv), its times beside the plain version's and the library call's,
-    and the bytes and operations its bound is taken from."""
+    conv), its per-call, device and host times beside the plain version's
+    and the library call's, and the bytes and operations its bound is
+    taken from."""
     import io
 
     from lidar_imu_slam_tpu_torch.ops.kernels import _common
@@ -1121,8 +1122,10 @@ def probe_phase(dev):
         _require(r["max_abs_err"] <= tol,
                  f"{name} {r['probe']} {r['name']}: {r['max_abs_err']} from its plain version")
         bound, by = _bound_ms(r["bytes"], r["ops"])
-        case = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound,
-                    library_ms=r["library_ms"])
+        case = dict(ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"],
+                    plain_ms=r["plain_ms"], bound_ms=bound, library_ms=r["library_ms"],
+                    library_device_ms=r["library_device_ms"],
+                    library_host_ms=r["library_host_ms"])
         print(f"{name} {r['probe']} {r['name']}: bound {bound:.6f} ms ({by})")
         if name not in results:
             results[name] = dict(name=name, route="cuda",
@@ -1323,6 +1326,7 @@ def main() -> int:
     probe_kernels, probe_launches = probe_phase(dev)
     kernels += probe_kernels
     small_drive_phase(dev)
+    small_drive_phase(dev, packed_nn=False)
     small_classic_phase(dev)
     small_lio_phase(dev)
     raws, gt = render_hdl_drive(dev)
@@ -1334,6 +1338,7 @@ def main() -> int:
     del state64, out64
     # each kernel's launches come from the drive of its own path
     launches["fused_gn"] = small_batched_phase(dev)["fused_gn"]
+    small_batched_phase(dev, packed_nn=False)
     launches["fused_gn_batched"] = multi_stream_phase(dev, cfg, raws, gt)["fused_gn_batched"]
     del raws
     monte_carlo_phase(dev, cfgmod)

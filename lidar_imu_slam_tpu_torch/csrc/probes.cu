@@ -14,12 +14,26 @@
 //                   16 weighted sums + unrolled 6x6 Cholesky + Rodrigues exp
 //                   + left compose, all f32.
 //
-// What bounds them on the card: bytes. take_rows at (2048, 512) moves 8 MB
-// (index, gathered rows, output), about 2.5 us at 3.35 TB/s; take_lanes
-// 0.2 MB. One thread per output element, consecutive threads on
-// consecutive columns, so every index load, table load and store of a warp
-// is one coalesced 128-byte transaction (take_lanes' table loads are
-// scattered within a 32 KB row, which stays in L1/L2). gn_proto reads its
+// What bounds them on the card: bytes, and at the probes' sizes the launch.
+// take_rows at (2048, 512) with a (2048, 512) index moves 12 MB (index,
+// gathered rows, output), about 3.6 us at 3.35 TB/s; at (2048, 128) by
+// (2048, 1) 2 MB, 0.6 us; take_lanes 0.2 MB. The gathers are laid out for
+// few, wide, independent memory operations in flight per thread:
+//   * take_rows, blocks of 4 warps; each warp takes kRowsPerWarp rows at
+//     once and 32 consecutive 16-byte vectors of each (grid x: vector
+//     columns, grid y: row groups, sized for one wave on 132 SMs, then a
+//     row-group loop). An (N, 1) index is read once per row by one lane and
+//     broadcast with __shfl_sync; the rows' table loads (__ldg of float4 /
+//     int4, ld.global.nc) all go out before the first streaming store
+//     (__stcs), so the dependent index -> table chains of the rows overlap.
+//     An (N, W) index is read as one int4 a thread, then four table loads
+//     and one 16-byte store. Two-dimensional indices: no division;
+//   * take_lanes, a grid of (column chunk, row): each thread loads an int4
+//     of indices, reads four table entries of its row (a 32 KB row stays in
+//     L1) and writes one float4.
+// The launcher takes the 16-byte variant when the widths are multiples of 4
+// and the pointers 16-byte aligned, else the scalar variant of the same
+// kernel (one element per load). gn_proto reads its
 // 3.9 MB of candidates once per iteration; its design is the simple one
 // block: ONE block of 1024 threads strides over the queries, each thread keeps
 // 16 f32 partial sums (and the correspondence count), a warp-shuffle +
@@ -44,33 +58,97 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kGatherThreads = 256;
+constexpr int kRowThreads = 128;  // take_rows: 4 warps a block
+constexpr int kRowsPerWarp = 4;    // rows a warp has in flight
+constexpr int kRowsPerBlock = kRowThreads / 32 * kRowsPerWarp;
+constexpr int kLaneThreads = 128;  // take_lanes
+constexpr long long kWaveBlocks = 132LL * 16;  // 128-thread blocks: 2048 threads on each of 132 SMs
 constexpr int kGnThreads = 1024;
 constexpr int kSums = 17;  // 16 weighted sums + the correspondence count
 
-template <typename T>
-__global__ void take_rows_kernel(const T* __restrict__ table, const int* __restrict__ idx,
-                                 int c, int w, int idx_cols, long long total,
-                                 T* __restrict__ out) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long i = e / w;
-    const int j = (int)(e - i * w);
-    int r = idx[i * idx_cols + (idx_cols == 1 ? 0 : j)];
-    r = min(max(r, 0), c - 1);
-    out[e] = table[(long long)r * w + j];
+template <typename T, int VEC> struct VecOf { using type = T; };
+template <> struct VecOf<float, 4> { using type = float4; };
+template <> struct VecOf<int, 4> { using type = int4; };
+
+__device__ __forceinline__ float4 make4(float a, float b, float c, float d) {
+  return make_float4(a, b, c, d);
+}
+__device__ __forceinline__ int4 make4(int a, int b, int c, int d) { return make_int4(a, b, c, d); }
+
+__device__ __forceinline__ int clamp_row(int r, int c) { return min(max(r, 0), c - 1); }
+
+// out[i, j] = table[clamp(idx[i, j or 0]), j] over VEC-wide vectors of a
+// row: w % VEC == 0, and with VEC = 4 table / out (and an (N, W) idx)
+// 16-byte aligned. BCAST: idx is (N, 1).
+template <typename T, int VEC, bool BCAST>
+__global__ void __launch_bounds__(kRowThreads)
+take_rows_kernel(const T* __restrict__ table, const int* __restrict__ idx, int c, int w, int n,
+                 T* __restrict__ out) {
+  using V = typename VecOf<T, VEC>::type;
+  const int lane = threadIdx.x & 31;
+  const int wv = w / VEC;                   // vectors a row
+  const int col = blockIdx.x * 32 + lane;  // this lane's vector column
+  const bool on = col < wv;
+  const V* tab = reinterpret_cast<const V*>(table);
+  V* dst = reinterpret_cast<V*>(out);
+  const int step = gridDim.y * kRowsPerBlock;
+  for (int row0 = blockIdx.y * kRowsPerBlock + (threadIdx.x >> 5) * kRowsPerWarp; row0 < n;
+       row0 += step) {
+    V v[kRowsPerWarp];
+    if constexpr (BCAST) {
+      int mine = 0;  // lane u < kRowsPerWarp reads row row0 + u's index
+      if (lane < kRowsPerWarp && row0 + lane < n) mine = clamp_row(__ldg(idx + row0 + lane), c);
+#pragma unroll
+      for (int u = 0; u < kRowsPerWarp; ++u) {
+        const int r = __shfl_sync(0xffffffffu, mine, u);
+        if (on && row0 + u < n) v[u] = __ldg(tab + (size_t)r * wv + col);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kRowsPerWarp; ++u) {
+        if (!on || row0 + u >= n) continue;
+        const int j = col * VEC;                          // first column
+        const size_t e = (size_t)(row0 + u) * w + j;       // first element
+        if constexpr (VEC == 4) {
+          const int4 r = __ldg(reinterpret_cast<const int4*>(idx + e));
+          v[u] = make4(__ldg(table + (size_t)clamp_row(r.x, c) * w + j),
+                       __ldg(table + (size_t)clamp_row(r.y, c) * w + j + 1),
+                       __ldg(table + (size_t)clamp_row(r.z, c) * w + j + 2),
+                       __ldg(table + (size_t)clamp_row(r.w, c) * w + j + 3));
+        } else {
+          v[u] = __ldg(table + (size_t)clamp_row(__ldg(idx + e), c) * w + j);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsPerWarp; ++u)
+      if (on && row0 + u < n) __stcs(dst + (size_t)(row0 + u) * wv + col, v[u]);
   }
 }
 
-__global__ void take_lanes_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                                  int c, int n, long long total, float* __restrict__ out) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long r = e / n;
-    const int col = min(max(idx[e], 0), c - 1);
-    out[e] = table[r * c + col];
+// out[r, j] = table[r, clamp(idx[r, j])] over VEC consecutive columns a
+// thread: n % VEC == 0, and with VEC = 4 idx / out 16-byte aligned
+template <int VEC>
+__global__ void __launch_bounds__(kLaneThreads)
+take_lanes_kernel(const float* __restrict__ table, const int* __restrict__ idx, int rows, int c,
+                  int n, float* __restrict__ out) {
+  const int j = (blockIdx.x * kLaneThreads + threadIdx.x) * VEC;
+  if (j >= n) return;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float* row = table + (size_t)r * c;
+    const size_t e = (size_t)r * n + j;
+    if constexpr (VEC == 4) {
+      const int4 k = __ldg(reinterpret_cast<const int4*>(idx + e));
+      __stcs(reinterpret_cast<float4*>(out + e),
+             make_float4(__ldg(row + clamp_row(k.x, c)), __ldg(row + clamp_row(k.y, c)),
+                         __ldg(row + clamp_row(k.z, c)), __ldg(row + clamp_row(k.w, c))));
+    } else {
+      __stcs(out + e, __ldg(row + clamp_row(__ldg(idx + e), c)));
+    }
   }
 }
 
@@ -275,20 +353,29 @@ gn_proto_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
   if (tid < 13) out[tid] = carry[tid];
 }
 
-int grid_for(long long total) {  // grid-stride loops: at most 8 x 65535 blocks
-  const long long blocks = (total + kGatherThreads - 1) / kGatherThreads;
-  return (int)(blocks < 65535LL * 8 ? blocks : 65535LL * 8);
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <typename T, int VEC, bool BCAST>
+void launch_rows(const void* table, const void* idx, int c, int w, int n, void* out,
+                 cudaStream_t st) {
+  const long long gx = (w / VEC + 31) / 32;
+  const long long groups = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+  long long gy = kWaveBlocks / gx;  // one wave, then the row-group loop
+  gy = std::min(std::min(groups, std::max(gy, 1LL)), 65535LL);
+  take_rows_kernel<T, VEC, BCAST><<<dim3((unsigned)gx, (unsigned)gy), kRowThreads, 0, st>>>(
+      static_cast<const T*>(table), static_cast<const int*>(idx), c, w, n, static_cast<T*>(out));
 }
 
 template <typename T>
 int launch_take_rows(const void* table, const void* idx, int c, int w, int n, int idx_cols,
                      void* out, cudaStream_t st) {
-  const long long total = (long long)n * w;
-  if (total <= 0) return 0;
-  const int blocks = grid_for(total);
-  take_rows_kernel<T><<<blocks, kGatherThreads, 0, st>>>(
-      static_cast<const T*>(table), static_cast<const int*>(idx), c, w, idx_cols, total,
-      static_cast<T*>(out));
+  if (n <= 0 || w <= 0) return 0;
+  const bool bcast = idx_cols == 1;
+  const bool vec = w % 4 == 0 && aligned16(table) && aligned16(out) && (bcast || aligned16(idx));
+  if (vec && bcast) launch_rows<T, 4, true>(table, idx, c, w, n, out, st);
+  else if (vec) launch_rows<T, 4, false>(table, idx, c, w, n, out, st);
+  else if (bcast) launch_rows<T, 1, true>(table, idx, c, w, n, out, st);
+  else launch_rows<T, 1, false>(table, idx, c, w, n, out, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,13 +396,17 @@ extern "C" int lis_take_rows(void* table, void* idx, int c, int w, int n, int id
 // out[r, j] = table[r, clamp(idx[r, j])]; table (R, C) f32, idx / out (R, N)
 extern "C" int lis_take_lanes(void* table, void* idx, int r, int c, int n, void* out,
                               void* stream) {
-  const long long total = (long long)r * n;
-  if (total <= 0) return 0;
+  if (r <= 0 || n <= 0) return 0;
   if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_for(total);
-  take_lanes_kernel<<<blocks, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(idx), c, n, total,
-      static_cast<float*>(out));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 4 == 0 && aligned16(idx) && aligned16(out);
+  const int per_block = kLaneThreads * (vec ? 4 : 1);
+  const dim3 grid((unsigned)((n + per_block - 1) / per_block), (unsigned)std::min(r, 65535));
+  const float* t = static_cast<const float*>(table);
+  const int* k = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  if (vec) take_lanes_kernel<4><<<grid, kLaneThreads, 0, st>>>(t, k, r, c, n, o);
+  else take_lanes_kernel<1><<<grid, kLaneThreads, 0, st>>>(t, k, r, c, n, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -197,7 +197,8 @@ def icp_registration_fused_pair(
 ) -> FusedIcpResult:
     """The fused-kernel ICP loop: each round transforms the source by the
     current pose, centres it on its masked centroid, fetches candidates
-    from the packed slab and runs one `fused_gn_carry` (up to `n_inner` GN
+    from the packed slab (the f32 point slab under packed_nn=False, as in
+    the JAX package) and runs one `fused_gn_carry` (up to `n_inner` GN
     iterations, then de-centring and composition in f64).
 
     Same outer semantics as the JAX `lax.while_loop`
@@ -240,8 +241,9 @@ def icp_registration_fused_pair(
         anchor = torch.stack([torch.sum(torch.where(mask, c, torch.zeros_like(c)))
                               for c in (wx, wy, wz)]) / nq
         q = torch.stack([wx - anchor[0], wy - anchor[1], wz - anchor[2]])
-        cand = voxel_map.gather_candidate_planes_packed(
-            m, torch.stack([wx, wy, wz], dim=-1), mask, map_cfg, anchor)
+        fetch = (voxel_map.gather_candidate_planes_packed if map_cfg.packed_nn
+                 else voxel_map.gather_candidate_planes)
+        cand = fetch(m, torch.stack([wx, wy, wz], dim=-1), mask, map_cfg, anchor)
         row = icp_gn.fused_gn_carry(q, qmask, cand.contiguous(), scal,
                                     torch.cat([pose, anchor.to(F64)]), n_inner)
         pose = row[:12]
@@ -424,7 +426,9 @@ def _fused_round(m, px, py, pz, mask, qmask, T, map_cfg: MapConfig, scal, n_inne
     q = torch.stack([(c - anchor[..., i, None]).to(F32)
                      for i, c in enumerate((wx, wy, wz))], dim=-2)
     world_f = torch.stack([wx.to(F32), wy.to(F32), wz.to(F32)], dim=-1)
-    cand = voxel_map.gather_candidate_planes_packed(m, world_f, mask, map_cfg, anchor)
+    fetch = (voxel_map.gather_candidate_planes_packed if map_cfg.packed_nn
+             else voxel_map.gather_candidate_planes)
+    cand = fetch(m, world_f, mask, map_cfg, anchor)
     gn = icp_gn.fused_gn if q.dim() == 2 else icp_gn.fused_gn_batched
     row = gn(q, qmask, cand.contiguous(), scal, n_inner)
     Rd = row[..., :9].reshape(row.shape[:-1] + (3, 3))

@@ -1,15 +1,26 @@
 """What every kernel wrapper shares: the launch counters, the CPU-or-CUDA
-dispatch rule and the argument checks.
+dispatch rule, the argument checks and the launch path.
 
 Dispatch rule: a wrapper runs its kernel's plain PyTorch version only when
 every tensor it was given lies on the CPU. Otherwise it loads the kernel
 library (building it on first use) and launches the kernel on CUDA tensors,
 or raises — there is no fallback.
+
+Launch path: `bind` binds a C entry of the library (its ctypes argtypes)
+once. The lean path of a wrapper whose kernel is as short as its launch
+(`lean_entry`) checks with a few direct attribute comparisons and reads
+the current stream's raw handle without building a `torch.cuda.Stream`,
+so the host spends on a call little more than the ctypes call and one
+`new_empty`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import _build
 
 # launches per kernel; incremented by each wrapper right where it launches
 LAUNCHES: dict[str, int] = {"fused_gn_carry": 0, "pose_pre": 0, "pose_post": 0,
@@ -25,12 +36,12 @@ def reset_launches() -> None:
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when all tensors lie on the CPU; False when none does; raises
     on a mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if "cpu" in kinds:
-        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
-    return False
+    cpu = tensors[0].is_cpu
+    for t in tensors[1:]:
+        if t.is_cpu is not cpu:
+            raise ValueError(
+                f"tensors on mixed devices: {sorted({t.device.type for t in tensors})}")
+    return cpu
 
 
 def expect(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
@@ -58,3 +69,28 @@ def expect_cuda(*tensors: torch.Tensor) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def bind(cache: dict, name: str, argtypes: list):
+    """The library's C entry `name` with its argtypes, loaded (the library
+    built on first use) and bound once, then served from `cache`."""
+    fn = cache.get(name)
+    if fn is None:
+        fn = getattr(_build.load(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        cache[name] = fn
+    return fn
+
+
+def lean_entry(cache: dict, name: str, argtypes: list, a: torch.Tensor, b: torch.Tensor):
+    """The lean launch path: (the bound entry, the raw handle of the current
+    stream of a's device). Loads the library before it looks at the devices
+    (a CPU-only torch has no raw-stream call) and raises unless both
+    tensors lie on one CUDA device."""
+    fn = bind(cache, name, argtypes)
+    dev = a.get_device()
+    if not (a.is_cuda and b.is_cuda and b.get_device() == dev):
+        raise ValueError(f"kernel needs both tensors on one CUDA device, got {a.device} "
+                         f"and {b.device}")
+    return fn, torch._C._cuda_getCurrentRawStream(dev)

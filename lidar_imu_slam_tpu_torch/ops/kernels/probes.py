@@ -19,7 +19,9 @@ Counterparts of the Pallas kernels in the JAX package's `tools/`:
 
 Indices are clamped into the table (the probes' are in range). The
 dispatch rule is `_common`'s: the plain version for CPU tensors, the kernel
-(or an exception) for CUDA tensors.
+(or an exception) for CUDA tensors. The two gathers take `_common`'s lean
+launch path: their kernels take about as long on the card as a launch
+takes on the host.
 """
 
 from __future__ import annotations
@@ -29,41 +31,23 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import LAUNCHES, expect, expect_cuda, on_cpu, stream_handle
+from ._common import LAUNCHES, bind, expect, expect_cuda, lean_entry, on_cpu, stream_handle
 
 F32 = torch.float32
 I32 = torch.int32
 _ELEM_CODE = {F32: 0, I32: 1}
 
-_fns: dict[str, object] = {}
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+_TAKE_ROWS_ARGS = [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp]
+_TAKE_LANES_ARGS = [_vp, _vp, _i, _i, _i, _vp, _vp]
+_GN_PROTO_ARGS = [_vp, _vp, _vp, _vp, _i, _i, _i, _vp, _vp]
 
-
-def _kernel(name: str):
-    if name not in _fns:
-        fn = getattr(_build.load(), name)
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = {
-            "lis_take_rows": [vp, vp, i, i, i, i, i, vp, vp],
-            "lis_take_lanes": [vp, vp, i, i, i, vp, vp],
-            "lis_gn_proto": [vp, vp, vp, vp, i, i, i, vp, vp],
-        }[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+_fns: dict[str, object] = {}  # bound C entries (`_common.bind`)
 
 
 # ---------------------------------------------------------------------------
 # gathers (P1, P2, P4)
 # ---------------------------------------------------------------------------
-
-
-def _check_take_rows(table, idx):
-    if table.dtype not in _ELEM_CODE:
-        raise TypeError(f"table: expected float32 or int32, got {table.dtype}")
-    expect("table", table, table.dtype, (None, None))
-    expect("idx", idx, I32, (None, None))
-    if idx.shape[1] not in (1, table.shape[1]):
-        raise ValueError(f"idx: expected (N, 1) or (N, {table.shape[1]}), got {tuple(idx.shape)}")
 
 
 def take_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -76,16 +60,22 @@ def take_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i, j] = table[idx[i, j or 0], j]: table (C, W) f32 / i32, idx
     (N, W) or (N, 1) i32 -> (N, W) of the table's dtype."""
-    _check_take_rows(table, idx)
+    code = _ELEM_CODE.get(table.dtype)
+    if code is None or idx.dtype != I32:
+        raise TypeError(f"take_rows: expected a float32 or int32 table and an int32 index, "
+                        f"got {table.dtype} and {idx.dtype}")
+    ts, isz = table.shape, idx.shape
+    if len(ts) != 2 or len(isz) != 2 or (isz[1] != 1 and isz[1] != ts[1]):
+        raise ValueError(f"take_rows: expected table (C, W) and idx (N, 1) or (N, W), got "
+                         f"{tuple(ts)} and {tuple(isz)}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("take_rows: expected contiguous tensors")
     if on_cpu(table, idx):
         return take_rows_plain(table, idx)
-    fn = _kernel("lis_take_rows")
-    expect_cuda(table, idx)
-    c, w = table.shape
-    n = idx.shape[0]
-    out = torch.empty((n, w), dtype=table.dtype, device=table.device)
-    status = fn(table.data_ptr(), idx.data_ptr(), c, w, n, idx.shape[1],
-                _ELEM_CODE[table.dtype], out.data_ptr(), stream_handle(table.device))
+    fn, stream = lean_entry(_fns, "lis_take_rows", _TAKE_ROWS_ARGS, table, idx)
+    out = table.new_empty((isz[0], ts[1]))
+    status = fn(table.data_ptr(), idx.data_ptr(), ts[0], ts[1], isz[0], isz[1], code,
+                out.data_ptr(), stream)
     _build.check(status, "take_rows")
     LAUNCHES["take_rows"] += 1
     return out
@@ -99,17 +89,20 @@ def take_lanes_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def take_lanes(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[r, j] = table[r, idx[r, j]]: table (R, C) f32, idx (R, N) i32 ->
     (R, N) f32."""
-    expect("table", table, F32, (None, None))
-    expect("idx", idx, I32, (table.shape[0], None))
+    if table.dtype != F32 or idx.dtype != I32:
+        raise TypeError(f"take_lanes: expected a float32 table and an int32 index, got "
+                        f"{table.dtype} and {idx.dtype}")
+    ts, isz = table.shape, idx.shape
+    if len(ts) != 2 or len(isz) != 2 or isz[0] != ts[0]:
+        raise ValueError(f"take_lanes: expected table (R, C) and idx (R, N), got "
+                         f"{tuple(ts)} and {tuple(isz)}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("take_lanes: expected contiguous tensors")
     if on_cpu(table, idx):
         return take_lanes_plain(table, idx)
-    fn = _kernel("lis_take_lanes")
-    expect_cuda(table, idx)
-    r, c = table.shape
-    n = idx.shape[1]
-    out = torch.empty((r, n), dtype=F32, device=table.device)
-    status = fn(table.data_ptr(), idx.data_ptr(), r, c, n, out.data_ptr(),
-                stream_handle(table.device))
+    fn, stream = lean_entry(_fns, "lis_take_lanes", _TAKE_LANES_ARGS, table, idx)
+    out = table.new_empty(isz)
+    status = fn(table.data_ptr(), idx.data_ptr(), ts[0], ts[1], isz[1], out.data_ptr(), stream)
     _build.check(status, "take_lanes")
     LAUNCHES["take_lanes"] += 1
     return out
@@ -278,7 +271,7 @@ def gn_proto(q: torch.Tensor, qmask: torch.Tensor, cand: torch.Tensor, scal: tor
     expect("scal", scal, F32, (2,))
     if on_cpu(q, qmask, cand, scal):
         return gn_proto_plain(q, qmask, cand, scal, n_inner)
-    fn = _kernel("lis_gn_proto")
+    fn = bind(_fns, "lis_gn_proto", _GN_PROTO_ARGS)
     expect_cuda(q, qmask, cand, scal)
     out = torch.empty(13, dtype=F32, device=q.device)
     status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(), nq,

@@ -584,6 +584,31 @@ def nearest_neighbors(m: VoxelMap, queries, qmask, cfg: MapConfig):
     return nn_from_candidates(cand, cand_valid, queries, qmask)
 
 
+def gather_candidate_planes(m: VoxelMap, queries, qmask, cfg: MapConfig,
+                            anchor) -> torch.Tensor:
+    """Candidate fetch for the GN kernel from the f32 point slab (JAX
+    voxel_map.py:792), the fused paths' fetch under `packed_nn=False`.
+
+    queries (..., N, 3) f32 world frame; anchor (..., 3) centring offset,
+    subtracted in f32 (rounded to f32 first, as JAX does). Returns
+    (..., 3, NC, N) f32 candidate coordinates centred on `anchor`, NC = NB *
+    Kn (Kn = cfg.nn_points or K), candidate j = nb * Kn + k — JAX's order,
+    which decides the kernel's ties (it keeps the first minimum). +inf
+    marks absent voxels and unused slots."""
+    if not m.points.numel():
+        raise ValueError("the f32 candidate fetch requires store_points=True")
+    kn = cfg.nn_points if cfg.nn_points else cfg.max_points_per_voxel
+    slots = _neighbor_slots(m, queries, qmask, cfg)
+    lead, (n, nb) = slots.shape[:-2], slots.shape[-2:]
+    present = slots >= 0
+    safe = torch.where(present, slots, torch.zeros_like(slots))
+    rows = _take(m.points, safe.reshape(lead + (n * nb,)))[..., :kn * 3]
+    rows = torch.where(present.reshape(lead + (n * nb, 1)), rows,
+                       torch.full_like(rows, float("inf")))
+    planes = rows.reshape(lead + (n, nb * kn, 3)).transpose(-1, -3)  # (..., 3, NC, N)
+    return planes - anchor.to(torch.float32)[..., :, None, None]
+
+
 def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
                                    anchor) -> torch.Tensor:
     """Candidate fetch for the GN kernel from the packed i32 slab.

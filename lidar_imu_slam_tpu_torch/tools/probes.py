@@ -16,18 +16,33 @@ JAX package's `tools/exp_pallas.py` and `tools/exp_gather2.py`.
   GN_TOL of its plain version with an equal `conv`. No library call
   computes it.
 * gather2 (exp_gather2.py:main): P4, take_along_axis on axis 0 at W = 128
-  and 512 (`take_rows`, (N, W) index) and the i32 table by an (N, 1) index,
-  each beside `torch.index_select`; then the library row gathers the JAX
-  tool times alone: 32k rows of (8192, 30) f32 and of (8192, 15) i64.
+  and 512 (`take_rows`, (N, W) index) beside `torch.gather` on axis 0 (the
+  same function; `torch.index_select` of the flat index, a narrower one,
+  is printed beside it as history), and the i32 table by an (N, 1) index
+  beside `torch.index_select`; then the library row gathers the JAX tool
+  times alone: 32k rows of (8192, 30) f32 and of (8192, 15) i64.
 
-One line per probe: its name, ms per call, the plain version's and the
-library call's ms, the kernel's largest deviation from its plain version
-and `correct=...` (the gathers must equal numpy's gather and, on the card,
-their plain versions bit for bit). On the card the times are CUDA events
-over REPS calls after a warm-up; with `--device cpu` the wrappers run
-their plain versions, each timed once by the host clock. Inputs come from
-`numpy.random.default_rng(0)`, drawn in the JAX tools' order (exp_gather2's
-and the GN probe's arrays are the JAX tools' own).
+One line per probe: its name; for the kernel and for its library call
+three times per call; the plain version's time; the kernel's largest
+deviation from its plain version and `correct=...` (the gathers must equal
+numpy's gather and, on the card, their plain versions bit for bit). The
+three times on the card, after a warm-up call:
+
+* `ms`: CUDA events around REPS back-to-back calls. When the host takes
+  longer to enqueue a call than the card to run it, this is the host's rate;
+* `device`: the same REPS calls queued behind a stream sleep
+  (`torch.cuda._sleep`), so the events time the kernels back to back: the
+  card's time per call, free of the host's;
+* `host`: the host clock over HOST_REPS calls with no synchronize inside
+  the loop: the host's time to enqueue one call.
+
+Each is the median of ROUNDS rounds that take the kernel and its library
+call in turns (the host's speed drifts by tens of percent within a run).
+
+With `--device cpu` the wrappers run their plain versions, each timed once
+by the host clock; device and host times are not measured there. Inputs
+come from `numpy.random.default_rng(0)`, drawn in the JAX tools' order
+(exp_gather2's and the GN probe's arrays are the JAX tools' own).
 """
 
 from __future__ import annotations
@@ -49,6 +64,12 @@ SHIFT = (0.3, -0.2, 0.1)  # the GN probe's query offset
 # by the order of the f32 block sums
 GN_TOL = 1e-5
 REPS = 100  # timed calls per measurement on the card
+HOST_REPS = 1000  # calls the host clock times for the enqueue time
+ROUNDS = 5  # rounds of each measurement on the card, the reported time their median
+# the stream's sleep ahead of a device-time measurement: 100M cycles, 50 ms
+# at the H100's 1.98 GHz boost clock (longer at lower clocks)
+SLEEP_CYCLES = 100_000_000
+SLEEP_MS = 50.0
 
 
 def _ms(fn, device: torch.device) -> float:
@@ -68,6 +89,61 @@ def _ms(fn, device: torch.device) -> float:
     t0 = time.perf_counter()
     fn()
     return (time.perf_counter() - t0) * 1e3
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """The card's time per call: the stream sleeps while the host queues
+    `reps` calls, so the events time the calls back to back, free of the
+    host's launch cost. Raises when queueing outlasted half the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued * 1e3 >= 0.5 * SLEEP_MS:
+        raise RuntimeError(f"device timing: queueing took {queued * 1e3:.1f} ms")
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = HOST_REPS) -> float:
+    """The host's time to enqueue one call: the host clock over `reps`
+    calls, no synchronize inside the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def _times(fn, device: torch.device) -> dict:
+    """ms, device_ms and host_ms of one call (the last two None off the
+    card)."""
+    on_card = device.type == "cuda"
+    return dict(ms=_ms(fn, device), device_ms=device_ms(fn) if on_card else None,
+                host_ms=host_ms(fn) if on_card else None)
+
+
+def _times_in_turns(fns, device: torch.device) -> list[dict]:
+    """`_times` of each function; on the card the median of ROUNDS rounds
+    that take the functions in turns, forwards then backwards, so a drift
+    of the host's speed falls on all of them alike."""
+    runs = [[] for _ in fns]
+    for r in range(ROUNDS if device.type == "cuda" else 1):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            runs[i].append(_times(fns[i], device))
+    return [{k: None if t[0][k] is None else float(np.median([x[k] for x in t])) for k in t[0]}
+            for t in runs]
 
 
 def _nbytes(*tensors) -> int:
@@ -123,22 +199,27 @@ def gn_inputs(device, nq: int = NQ, nc: int = NC) -> dict:
 
 
 def _kernel_row(probe, name, kernel, args, device, check, library=None, lib_fn=None,
-                reads=None, n_ops=0.0) -> dict:
+                reads=None, n_ops=0.0, history=None) -> dict:
     """Run one kernel case: its output against its plain version (on the
     CPU the wrapper is the plain version), `check(out, plain)` for
-    `correct`, and the kernel's, plain version's and library call's times.
-    `bytes` and `ops` are what a bound on the card needs: `reads` bytes
-    (by default every input once) and the output written once."""
+    `correct`, the kernel's and the library call's three times (taken in
+    turns, `_times_in_turns`) and the plain version's time; `history` =
+    (name, fn) of an earlier yardstick, timed in the same turns. `bytes`
+    and `ops` are what a bound on the card needs: `reads` bytes (by
+    default every input once) and the output written once."""
     fn, plain = getattr(kp, kernel), getattr(kp, kernel + "_plain")
     out = fn(*args)
     on_card = device.type == "cuda"
     ref = plain(*args) if on_card else out
-    ms = _ms(lambda: fn(*args), device)
+    yardsticks = [f for f in (lib_fn, history and history[1]) if f]
+    t, *others = _times_in_turns([lambda: fn(*args), *yardsticks], device)
+    lib = others[0] if lib_fn else dict(ms=None, device_ms=None, host_ms=None)
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     return dict(
-        probe=probe, name=name, kernel=kernel, out=out, ms=ms,
-        plain_ms=_ms(lambda: plain(*args), device) if on_card else ms,
-        library=library, library_ms=_ms(lib_fn, device) if lib_fn else None,
+        probe=probe, name=name, kernel=kernel, out=out, **t,
+        plain_ms=_ms(lambda: plain(*args), device) if on_card else t["ms"],
+        library=library, **{f"library_{k}": v for k, v in lib.items()},
+        history=(history[0], others[-1]) if history else None,
         max_abs_err=float((out.double() - ref.double()).abs().max()),
         correct=bool(check(out, ref)),
         bytes=(_nbytes(*tensors) if reads is None else reads) + _nbytes(out), ops=n_ops,
@@ -206,16 +287,23 @@ def probe_gather2(device) -> list[dict]:
     i1 = x["idx1"].cpu().numpy()[:, 0]
     flat, big = x["idx1"][:, 0].long(), x["big_idx"].long()
     hit = len(np.unique(i1))  # table rows read
-    rows = [
-        _kernel_row("P4", name, "take_rows", (table, idx), device,
-                    _gather_check(table.cpu().numpy()[i1]), "torch.index_select",
-                    lambda table=table: torch.index_select(table, 0, flat),
-                    reads=_gather_reads(idx, hit * table.shape[1], 4))
-        for name, table, idx in (
-            ("taa axis=0 (C,128)->(N,128)", x["table"], x["idx"]),
-            ("taa axis=0 (C,512)->(N,512)", x["table2"], x["idxw"]),
-            ("taa axis=0 i32 + in-kernel broadcast", x["ktab"], x["idx1"]))
-    ]
+    rows = []
+    for name, table, idx in (("taa axis=0 (C,128)->(N,128)", x["table"], x["idx"]),
+                             ("taa axis=0 (C,512)->(N,512)", x["table2"], x["idxw"])):
+        # the same function: torch.gather on axis 0 by the (N, W) index,
+        # made long outside the timed calls
+        wide = idx.long()
+        rows.append(_kernel_row(
+            "P4", name, "take_rows", (table, idx), device,
+            _gather_check(table.cpu().numpy()[i1]), "torch.gather",
+            lambda table=table, wide=wide: torch.gather(table, 0, wide),
+            reads=_gather_reads(idx, hit * table.shape[1], 4),
+            history=("torch.index_select", lambda table=table: torch.index_select(table, 0, flat))))
+    rows.append(_kernel_row(
+        "P4", "taa axis=0 i32 + in-kernel broadcast", "take_rows", (x["ktab"], x["idx1"]), device,
+        _gather_check(x["ktab"].cpu().numpy()[i1]), "torch.index_select",
+        lambda: torch.index_select(x["ktab"], 0, flat),
+        reads=_gather_reads(x["idx1"], hit * x["ktab"].shape[1], 4)))
     for name, table in (("library gather 32k x (30,) f32 rows", x["tab30"]),
                         ("library gather 32k x (15,) i64 rows", x["tab15"])):
         rows.append(_library_row("P4", name, "torch.index_select",
@@ -226,19 +314,31 @@ def probe_gather2(device) -> list[dict]:
 PROBES = {"gather": probe_gather, "gn": probe_gn, "gather2": probe_gather2}
 
 
+def _split(ms, dev_ms, host) -> str:
+    """'ms' alone off the card; 'ms (device d, host h)' on it."""
+    return f"{ms:.4f} ms" + ("" if dev_ms is None else f" (device {dev_ms:.4f}, host {host:.4f})")
+
+
 def _line(r: dict) -> str:
     if r["kernel"] is None:
         return f"{r['probe']} {r['name']} ({r['library']}): {r['ms']:.4f} ms  correct=True"
-    lib = f"{r['library']} {r['library_ms']:.4f} ms" if r["library"] else "no library call"
-    return (f"{r['probe']} {r['name']} [{r['kernel']}]: {r['ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  {lib}  max|d| {r['max_abs_err']:.3g}  "
-            f"correct={r['correct']}")
+    lib = (f"{r['library']} " + _split(r["library_ms"], r["library_device_ms"],
+                                       r["library_host_ms"])
+           if r["library"] else "no library call")
+    if r["history"]:
+        name, t = r["history"]
+        lib += f"  [{name} {_split(t['ms'], t['device_ms'], t['host_ms'])}]"
+    return (f"{r['probe']} {r['name']} [{r['kernel']}]: "
+            f"{_split(r['ms'], r['device_ms'], r['host_ms'])}  plain {r['plain_ms']:.4f} ms  "
+            f"{lib}  max|d| {r['max_abs_err']:.3g}  correct={r['correct']}")
 
 
 def run(which: str, device, out=sys.stdout) -> list[dict]:
     """Run one probe group (or "all") on `device`, print one line per probe
     and return the rows (probe, name, kernel, ms, library, correct; a
-    kernel's row also out, plain_ms, library_ms, max_abs_err, bytes, ops)."""
+    kernel's row also out, device_ms, host_ms, plain_ms, library_ms,
+    library_device_ms, library_host_ms, history, max_abs_err, bytes,
+    ops)."""
     device = torch.device(device)
     rows = []
     for key in (PROBES if which == "all" else (which,)):

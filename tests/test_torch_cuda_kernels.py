@@ -14,7 +14,7 @@ repeated launch bit-equal (the cluster's fixed-order reduction); K6
 indices equal and d^2 bit-equal (it rounds every f32 step as the plain
 version does); card against CPU poses 1e-4 over a short drive,
 single-stream or batched, fast or classic; the probe gathers `take_rows`
-and `take_lanes` bit-equal; `gn_proto` R and t within 1e-5 (the kernel and
+and `take_lanes` bit-equal in every launch variant; `gn_proto` R and t within 1e-5 (the kernel and
 the plain version differ only by the order of the f32 block sums) and
 `conv` equal; a short LIO drive, card against CPU, 1e-4 on both branches.
 """
@@ -337,29 +337,79 @@ def test_classic_drive_card_matches_cpu(dev):
     assert pool.shape == cpu_pool.shape
 
 
-@pytest.mark.parametrize("case", ["f32_w128", "f32_w512", "i32_broadcast", "lanes"])
+# take_rows: (table rows C, width W, index columns "w" or 1, rows N, dtype,
+# table offset, index offset, index range); take_lanes: (R, C, N, index
+# offset, index range). An offset of 1 element puts a contiguous tensor off
+# the 16-byte alignment the vector variants need. Every launch variant runs:
+# 16-byte and scalar (W % 4, alignment), broadcast and (N, W) index, N = 0,
+# N off the rows a block takes, rows past one wave (the row-group loop),
+# indices out of range (clamped).
+ROW_CASES = {
+    "f32_w128": (8192, 128, "w", 2048, np.float32, 0, 0, None),
+    "f32_w512": (8192, 512, "w", 2048, np.float32, 0, 0, None),
+    "i32_broadcast": (8192, 128, 1, 2048, np.int32, 0, 0, None),
+    "f32_broadcast_w128": (8192, 128, 1, 2048, np.float32, 0, 0, None),
+    "f32_broadcast_w512": (8192, 512, 1, 2048, np.float32, 0, 0, None),
+    "i32_w128": (8192, 128, "w", 2048, np.int32, 0, 0, None),
+    "f32_w30": (8192, 30, "w", 1000, np.float32, 0, 0, None),
+    "f32_w30_broadcast": (8192, 30, 1, 1000, np.float32, 0, 0, None),
+    "table_unaligned_broadcast": (8192, 128, 1, 2048, np.float32, 1, 0, None),
+    "table_unaligned": (8192, 128, "w", 2048, np.float32, 1, 0, None),
+    "idx_unaligned": (8192, 128, "w", 2048, np.float32, 0, 1, None),
+    "n0_broadcast": (8192, 128, 1, 0, np.float32, 0, 0, None),
+    "n0": (8192, 128, "w", 0, np.float32, 0, 0, None),
+    "n_ragged_broadcast": (8192, 128, 1, 2047, np.float32, 0, 0, None),
+    "n_ragged": (8192, 128, "w", 13, np.int32, 0, 0, None),
+    "rows_past_a_wave_broadcast": (512, 8, 1, 200_000, np.float32, 0, 0, None),
+    "rows_past_a_wave": (512, 8, "w", 200_000, np.float32, 0, 0, None),
+    "clamp_broadcast": (8192, 128, 1, 2048, np.float32, 0, 0, (-50, 8242)),
+    "clamp": (8192, 128, "w", 2048, np.float32, 0, 0, (-50, 8242)),
+}
+LANE_CASES = {
+    "lanes": (8, 8192, 2048, 0, None),
+    "lanes_n30": (8, 8192, 30, 0, None),
+    "lanes_idx_unaligned": (8, 8192, 2048, 1, None),
+    "lanes_n0": (8, 8192, 0, 0, None),
+    "lanes_rows_past_grid_y": (70_000, 16, 8, 0, None),
+    "lanes_clamp": (8, 8192, 2048, 0, (-50, 8242)),
+}
+
+
+def _on_card(a: np.ndarray, dev, offset: int) -> torch.Tensor:
+    """`a` on the card, contiguous, `offset` elements past the start of its
+    buffer (the caching allocator's buffers are 512-byte aligned)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and (out.data_ptr() % 16 == 0) == (offset == 0)
+    return out
+
+
+@pytest.mark.parametrize("case", [*ROW_CASES, *LANE_CASES])
 def test_probe_gathers_match_plain(dev, case):
     rng = np.random.default_rng(7)
-    c, n = 8192, 2048
-    if case == "lanes":
-        table = torch.from_numpy(rng.normal(size=(8, c)).astype(np.float32)).to(dev)
-        idx = torch.from_numpy(rng.integers(0, c, (8, n)).astype(np.int32)).to(dev)
+    if case in LANE_CASES:
+        r, c, n, ioff, lim = LANE_CASES[case]
+        table = _on_card(rng.normal(size=(r, c)).astype(np.float32), dev, 0)
+        idx = rng.integers(*(lim or (0, c)), (r, n)).astype(np.int32)
+        idx = _on_card(idx, dev, ioff)
         fn, plain, name = probes.take_lanes, probes.take_lanes_plain, "take_lanes"
     else:
-        w = 512 if case == "f32_w512" else 128
-        if case == "i32_broadcast":
+        c, w, cols, n, dtype, toff, ioff, lim = ROW_CASES[case]
+        if dtype == np.int32:
             table = rng.integers(0, 1 << 30, (c, w)).astype(np.int32)
-            idx = rng.integers(0, c, (n, 1)).astype(np.int32)
         else:
             table = rng.normal(size=(c, w)).astype(np.float32)
-            idx = rng.integers(0, c, (n, w)).astype(np.int32)
-        table, idx = torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+        idx = rng.integers(*(lim or (0, c)), (n, w if cols == "w" else 1)).astype(np.int32)
+        table, idx = _on_card(table, dev, toff), _on_card(idx, dev, ioff)
         fn, plain, name = probes.take_rows, probes.take_rows_plain, "take_rows"
     before = _common.LAUNCHES[name]
     out = fn(table, idx)
+    torch.cuda.synchronize()
     assert _common.LAUNCHES[name] == before + 1
     ref = plain(table, idx)
-    assert out.dtype == ref.dtype and torch.equal(out, ref)
+    assert out.dtype == ref.dtype and out.shape == ref.shape and torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("nq,nc,n_inner", [(4096, 80, 8), (1000, 16, 3)])

@@ -1,9 +1,11 @@
 """The slice: lidar-only KISS-ICP fast path, port against the JAX package.
 
-Two configurations at test size: `tiny` (__graft_entry__._tiny_cfg with
+Three configurations at test size: `tiny` (__graft_entry__._tiny_cfg with
 gn_backend="pallas": sorted scans, 27-voxel neighbourhood, f32 point slab,
-no deskew) and `bench_like` (the bench deployment's options scaled down:
-unsorted scans with per-point time, 8-voxel neighbourhood, packed-only map,
+no deskew), `tiny_f32_slab` (the same with packed_nn=False: the fused path
+fetches its candidates from the f32 point slab, `gather_candidate_planes`)
+and `bench_like` (the bench deployment's options scaled down: unsorted
+scans with per-point time, 8-voxel neighbourhood, packed-only map,
 head-compacted insert, CV deskew on rolling-shutter scans).
 
 * shared state: a 3-scan JAX drive is carried across with `interop`, then
@@ -40,10 +42,11 @@ N_SCANS = 8
 
 
 def _cfg(C, name):
-    if name == "tiny":
+    if name.startswith("tiny"):
         return C.PipelineConfig(
             lidar=C.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
-            map=C.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12, max_probes=16),
+            map=C.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12, max_probes=16,
+                            packed_nn=name != "tiny_f32_slab"),
             icp=C.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20,
                             gn_backend="pallas"),
             ekf=C.EkfConfig(lidar_pose_trail=4),
@@ -62,7 +65,7 @@ def _cfg(C, name):
 def _scans(name):
     """(xyz, per-point absolute time, stamp) per scan, and ground truth."""
     world = jsyn.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
-    if name == "tiny":
+    if name.startswith("tiny"):
         gt = jsyn.make_trajectory(n_poses=N_SCANS, speed=1.2, yaw_rate=0.03, dt=0.1)
         out = []
         for i in range(N_SCANS):
@@ -93,7 +96,7 @@ def _np_tree(state):
     return jax.tree.map(np.asarray, state)
 
 
-@pytest.fixture(scope="module", params=["tiny", "bench_like"])
+@pytest.fixture(scope="module", params=["tiny", "tiny_f32_slab", "bench_like"])
 def drives(request):
     name = request.param
     cj, ct = _cfg(jcfg, name), _cfg(tcfg, name)
@@ -131,6 +134,15 @@ def test_free_drive_ate_no_worse(drives):
     ate_j = jtraj.ate_rmse(drives["poses_j"], ref, align=False)
     assert ate_t <= ate_j + 1e-3, (ate_t, ate_j)
     assert ate_t < 0.08
+
+
+@pytest.mark.parametrize("drives", ["tiny_f32_slab"], indirect=True)
+def test_f32_slab_drive_scan2_matches_jax(drives):
+    """The packed_nn=False fused drive (candidates from the f32 slab):
+    scan 2's translation within 1e-3 m of JAX's, [0.0431, 0.0265, -0.0086]."""
+    got = drives["poses_t"][2, :3, 3]
+    np.testing.assert_allclose(got, drives["poses_j"][2, :3, 3], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got, [0.0431, 0.0265, -0.0086], rtol=0, atol=1e-3)
 
 
 def test_shared_state_step(drives):

@@ -1,10 +1,13 @@
 """Guards for the port's no-fallback rule: without a card `chip_smoke.py`
 fails and prints no result; a kernel wrapper given non-CPU tensors builds /
-loads its kernel or raises — it never runs the plain version; the build
-raises with nvcc's stderr. A whole batched step on non-CPU tensors runs up
+loads its kernel or raises — it never runs the plain version; the lean
+gather wrappers check dtype, shape, contiguity and devices before they
+load the library and launch only on one CUDA device; the build raises with
+nvcc's stderr. A whole batched step on non-CPU tensors runs up
 to kernel K5 and raises there (and, on `meta` tensors, shows that nothing
 before it reads the device from the host)."""
 
+import ctypes
 import os
 import shutil
 import stat
@@ -129,6 +132,66 @@ def test_probe_wrappers_take_the_plain_version_on_cpu(monkeypatch, kernel):
                               torch.tensor([0.5, 4.0]), 2)
         assert out.shape == (13,) and bool(torch.isfinite(out).all())
     assert _common.LAUNCHES == before
+
+
+def _gather_args(kernel, fault):
+    """Meta arguments of a gather wrapper with one fault (or none)."""
+    f32, i32 = torch.float32, torch.int32
+    rows = kernel == "take_rows"
+    table = _meta((64, 8) if rows else (4, 64), f32)
+    idx = _meta((16, 1) if rows else (4, 16), i32)
+    if fault == "table_dtype":
+        table = _meta(table.shape, torch.float64)
+    elif fault == "idx_dtype":
+        idx = _meta(idx.shape, torch.int64)
+    elif fault == "shape":
+        idx = _meta((16, 3) if rows else (5, 16), i32)
+    elif fault == "non_contiguous":
+        table = _meta(tuple(reversed(table.shape)), f32).t()
+    elif fault == "mixed_devices":
+        table = torch.zeros(table.shape, dtype=f32)
+    return table, idx
+
+
+@pytest.mark.parametrize("kernel", ["take_rows", "take_lanes"])
+@pytest.mark.parametrize("fault,error", [("table_dtype", TypeError), ("idx_dtype", TypeError),
+                                         ("shape", ValueError), ("non_contiguous", ValueError),
+                                         ("mixed_devices", ValueError)])
+def test_lean_gather_wrappers_check_before_loading(no_library, kernel, fault, error):
+    # the lean wrappers' direct checks run before the library is loaded:
+    # each fault raises its own error, not the (patched) build failure
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(error, match="mixed" if fault == "mixed_devices" else None):
+        getattr(probes, kernel)(*_gather_args(kernel, fault))
+    assert _common.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["take_rows", "take_lanes"])
+def test_lean_gather_wrappers_launch_only_on_cuda(monkeypatch, kernel):
+    # with a library that loads, non-CPU tensors off the card (meta) stop at
+    # the device check: no launch, no stream read, no plain version
+    entered = []
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                entered.append(name)
+                return 0
+            return entry
+
+    monkeypatch.setattr(_build, "load", Library)
+    monkeypatch.setattr(probes, "_fns", {})
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for non-CPU tensors")
+
+    monkeypatch.setattr(probes, f"{kernel}_plain", forbidden)
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        getattr(probes, kernel)(*_gather_args(kernel, None))
+    assert entered == [] and _common.LAUNCHES == before
+    assert set(probes._fns) == {f"lis_{kernel}"}  # bound once, with its argtypes
+    assert probes._fns[f"lis_{kernel}"].restype is ctypes.c_int
 
 
 def test_batched_step_raises_at_the_kernel(no_library):

@@ -128,6 +128,20 @@ def test_library_baselines_compute_the_same_gathers(jax_gather, jax_gather2):
         np.testing.assert_array_equal(got, out)
 
 
+@pytest.mark.parametrize("case", [0, 1])
+def test_p4_yardstick_is_the_same_function(jax_gather2, case):
+    # the entry point's yardstick for the (N, W)-index cases, torch.gather on
+    # axis 0, is take_along_axis itself: equal to the Pallas kernel's output,
+    # and to the port's kernel on an index whose columns differ
+    (table, idx), out = jax_gather2[case]
+    got = torch.gather(_t(table), 0, _t(idx).long()).numpy()
+    np.testing.assert_array_equal(got, out)
+    rng = np.random.default_rng(case)
+    mixed = rng.integers(0, table.shape[0], idx.shape).astype(np.int32)
+    np.testing.assert_array_equal(kp.take_rows(_t(table), _t(mixed)).numpy(),
+                                  torch.gather(_t(table), 0, _t(mixed).long()).numpy())
+
+
 def test_p3_gn_proto_matches_jax(jax_gn):
     (kth, maxd2, qx, qy, qz, qm, cx, cy, cz), out = jax_gn
     nc = cx.shape[0]
@@ -163,10 +177,17 @@ def test_probe_entry_point_on_cpu():
         if r["kernel"] is None:
             continue
         # each kernel case carries what a bound and a comparison need; on
-        # the CPU the wrapper is its plain version
+        # the CPU the wrapper is its plain version, and the device and host
+        # times are not measured
         assert r["max_abs_err"] == 0.0 and r["plain_ms"] == r["ms"] and r["bytes"] > 0
         assert (r["library_ms"] is None) == (r["kernel"] == "gn_proto")
         assert (r["ops"] > 0) == (r["kernel"] == "gn_proto")
+        assert r["device_ms"] is r["host_ms"] is r["library_device_ms"] is None
+    # P4's (N, W)-index cases: torch.gather, with index_select as history
+    taa = [r for r in rows if r["name"].startswith("taa axis=0 (C,")]
+    assert len(taa) == 2
+    assert all(r["library"] == "torch.gather" and r["history"][0] == "torch.index_select"
+               for r in taa)
     # P1: the index, the 2048 indices' distinct rows and the output
     p1 = rows[0]
     hit = len(np.unique(tp.gather_inputs("cpu")["idx"].numpy()))

@@ -2,13 +2,14 @@
 `parallel.streams` and the stream-axis voxel map, preprocess, statistics,
 deskew and pose bookkeeping against the JAX package under `jax.vmap`.
 
-Two configurations at test size, both under `batch_config` (2 x 4
+Three configurations at test size, all under `batch_config` (2 x 4
 fixed-unroll ICP, kernel K5 in the JAX package's interpret mode and the
 port's plain version): `compact` (the 8-stream HDL-64E deployment's
 options scaled down: head-compacted insert, CV deskew on rolling-shutter
-scans with per-point time) and `plain` (the Monte-Carlo VLP-16
-deployment's: plain insert, 2 packed points per voxel, 32-deep grid, no
-deskew, scans without timestamps). Scans are preprocessed ONCE by the port
+scans with per-point time), `f32_slab` (`compact` with packed_nn=False:
+the candidates come from the f32 point slab) and `plain` (the Monte-Carlo
+VLP-16 deployment's: plain insert, 2 packed points per voxel, 32-deep
+grid, no deskew, scans without timestamps). Scans are preprocessed ONCE by the port
 and the same arrays fed to both packages: JAX's `time_source="auto"`
 disagrees with its own rotation model on scans without timestamps
 (ROADMAP queue 3), so letting each package preprocess would compare that
@@ -59,12 +60,13 @@ N_SCANS = 5
 
 
 def _cfg(C, name):
-    if name == "compact":
+    if name in ("compact", "f32_slab"):
+        slab = name == "f32_slab"
         cfg = C.PipelineConfig(
             lidar=C.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
                                 sort_by_time=False, time_source="per_point"),
             map=C.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12, neighborhood=8,
-                            store_points=False, max_insert_voxels=700),
+                            store_points=slab, packed_nn=not slab, max_insert_voxels=700),
             icp=C.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20,
                             gn_backend="pallas", deskew=True),
         )
@@ -86,7 +88,7 @@ def _raw_scans(name):
     gt = jsyn.make_trajectory(n_poses=N_SCANS + S, speed=2.0, yaw_rate=0.03, dt=0.1)
     raws = []
     for i in range(N_SCANS + S - 1):
-        if name == "compact":
+        if name != "plain":
             pts, rel = jsyn.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5, 30.0,
                                                 noise=0.01, seed=i)
             raws.append(tpre.pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1,
@@ -112,7 +114,7 @@ def _jax_state(tree):
                         tree.num_poses, jicp.ThresholdState(*tree.threshold))
 
 
-@pytest.fixture(scope="module", params=["compact", "plain"])
+@pytest.fixture(scope="module", params=["compact", "f32_slab", "plain"])
 def drive(request):
     """S = 2 streams x 5 steps; stream s at step i sees scan i + s."""
     name = request.param
@@ -208,6 +210,40 @@ def test_single_stream_batch_config_matches_jax():
         assert int(ot.icp_iterations) == int(oj.icp_iterations)
     for f in jvm.VoxelMap._fields[:3]:
         np.testing.assert_array_equal(getattr(st.map, f).numpy(), np.asarray(getattr(sj.map, f)))
+
+
+def test_tiny_f32_slab_batched_matches_jax():
+    """__graft_entry__._tiny_cfg with packed_nn=False under batch_config: 2
+    streams x 3 steps, candidates from the f32 point slab (the fault this
+    pins raised at step 0), poses held to JAX's batched path."""
+    def cfg(C):
+        mod = jstreams if C is jcfg else tstreams
+        return mod.batch_config(C.PipelineConfig(
+            lidar=C.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
+            map=C.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12, max_probes=16,
+                            packed_nn=False),
+            icp=C.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20,
+                            gn_backend="pallas"),
+            ekf=C.EkfConfig(lidar_pose_trail=4),
+            imu=C.ImuConfig(max_init_count=20, max_samples_per_scan=32)))
+
+    cj, ct = cfg(jcfg), cfg(tcfg)
+    world = jsyn.make_world(seed=0, n_points=20000, extent=(20.0, 8.0, 4.0))
+    gt = jsyn.make_trajectory(n_poses=4, speed=1.2, yaw_rate=0.03, dt=0.1)
+    raws = []
+    for i in range(4):
+        pts = jsyn.render_scan(world, gt[i], 1500, 0.5, 30.0, noise=0.01, seed=i)
+        raws.append(tpre.pack_raw_scan(pts, time=jsyn.azimuth_times(pts, i * 0.1),
+                                       stamp=i * 0.1, max_points=2048, device="cpu"))
+    sj, st = jstreams.init_batched_state(cj, S), tstreams.init_batched_state(ct, S, "cpu")
+    for i in range(3):
+        scan = tpre.preprocess_scan(tpre.stack_raw_scans(raws[i:i + S]), ct.lidar)
+        sj, oj = jstreams.batched_register_frame_jit(sj, _to_jax_scan(scan), cj)
+        st, ot = tstreams.batched_register_frame(st, scan, ct)
+        pj, pt = np.asarray(oj.pose), ot.pose.numpy()
+        assert np.isfinite(pt).all()
+        assert np.abs(pt[:, :3, 3] - pj[:, :3, 3]).max() < 1e-3
+    assert np.abs(pt[0, :3, 3] - pt[1, :3, 3]).max() > 1e-3  # the streams differ
 
 
 def test_batched_requires_batch_config():

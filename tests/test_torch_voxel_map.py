@@ -1,9 +1,9 @@
 """The port's voxel map against the JAX package's: integer tables
 bit-equal after a seeded sequence of downsamples, inserts (both insert
 paths, functional and in place), evictions and a rebuild; downsamples
-equal; candidate planes equal (the port's (3, NC, N) layout is the JAX
-(3, NC, N/128, 128) layout without the lane split, so equal elementwise and
-therefore as sets)."""
+equal; candidate planes equal, from the packed slab and from the f32 point
+slab (the port's (3, NC, N) layout is the JAX (3, NC, N/128, 128) layout
+without the lane split, so equal elementwise and therefore as sets)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -146,6 +146,60 @@ def test_candidate_planes_equal(neighborhood, anchor_kind):
         st = {tuple(v) for v in ct[:, :, i].T if np.isfinite(v).all()}
         assert sj == st
     assert np.isfinite(ct).any()
+
+
+@pytest.mark.parametrize("nn_points", [0, 4])
+@pytest.mark.parametrize("neighborhood", [8, 27])
+@pytest.mark.parametrize("anchor_kind", ["centroid", "far"])
+def test_f32_slab_candidate_planes_equal(neighborhood, nn_points, anchor_kind):
+    """`gather_candidate_planes` (the fused paths' fetch under packed_nn=False)
+    bit-equal to JAX's, candidate order included: absent voxels +inf, the
+    first nn_points of K = 10 per voxel, an f64 anchor centred in f32."""
+    kw = dict(BASE, neighborhood=neighborhood, nn_points=nn_points, packed_nn=False)
+    c, ct = jcfg.MapConfig(**kw), tcfg.MapConfig(**kw)
+    rng = np.random.default_rng(neighborhood + nn_points)
+    mj, mt = jvm.create(c), tvm.create(ct, "cpu")
+    for it in range(2):  # a dense block: voxels with up to K points
+        pts, mask, _ = _cloud(rng, 2048, it * 1.0, spread=4.0)
+        gj = jvm.fused_downsample(jnp.asarray(pts), jnp.asarray(mask), c.voxel_size, 1024)
+        gt = tvm.fused_downsample(torch.from_numpy(pts), torch.from_numpy(mask),
+                                  ct.voxel_size, 1024)
+        mj = jvm.insert_grouped(mj, gj, c)
+        mt = tvm.insert_grouped(mt, gt, ct)
+    q = rng.uniform(-6, 6, (256, 3)).astype(np.float32)  # inside and around the block
+    qm = rng.uniform(size=256) < 0.9
+    anchor = (q[qm].mean(0) if anchor_kind == "centroid"
+              else np.array([300.5, -20.25, 3.0]) + 1e-9).astype(np.float64)
+    cj = np.asarray(jvm.gather_candidate_planes(mj, jnp.asarray(q), jnp.asarray(qm), c,
+                                                jnp.asarray(anchor.astype(np.float32))))
+    got = tvm.gather_candidate_planes(mt, torch.from_numpy(q), torch.from_numpy(qm), ct,
+                                      torch.from_numpy(anchor))
+    nc = neighborhood * (nn_points or c.max_points_per_voxel)
+    assert got.shape == (3, nc, 256) and cj.shape == (3, nc, 2, 128)
+    np.testing.assert_array_equal(got.numpy(), cj.reshape(3, nc, 256))
+    inf = np.isinf(got.numpy())
+    assert inf.any() and (~inf).any()
+    assert inf[:, :, ~qm].all()  # masked queries look nothing up
+    # a leading stream axis fetches each stream's own map
+    two = tvm.VoxelMap(*(torch.stack([t, t]) for t in mt))
+    both = tvm.gather_candidate_planes(
+        two, torch.from_numpy(np.stack([q, q[::-1].copy()])),
+        torch.from_numpy(np.stack([qm, qm[::-1].copy()])), ct,
+        torch.from_numpy(np.stack([anchor, anchor])))
+    assert both.shape == (2, 3, nc, 256)
+    assert torch.equal(both[0], got)
+    rev = tvm.gather_candidate_planes(mt, torch.from_numpy(q[::-1].copy()),
+                                      torch.from_numpy(qm[::-1].copy()), ct,
+                                      torch.from_numpy(anchor))
+    assert torch.equal(both[1], rev)
+
+
+def test_f32_slab_fetch_requires_the_point_slab():
+    c = tcfg.MapConfig(**BASE, store_points=False)
+    m = tvm.create(c, "cpu")
+    q = torch.zeros(128, 3)
+    with pytest.raises(ValueError, match="store_points"):
+        tvm.gather_candidate_planes(m, q, torch.ones(128, dtype=torch.bool), c, torch.zeros(3))
 
 
 def test_voxel_of_truncates_toward_zero():
