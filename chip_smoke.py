@@ -11,10 +11,14 @@ Needs one CUDA card, nvcc, and this checkout (it drives
 3. kernels: K1 `fused_gn_carry`, K2 `pose_pre` and K3 `pose_post` held
    against their plain PyTorch versions on the card at main-path shapes
    (K1: N = 4096 queries x NC = 80 candidate slots from seeded synthetic
-   geometry), each timed beside its plain version with CUDA events. The
-   GN cluster kernel's ptxas registers and spills, K1's cluster shape (C
-   CTAs a stream, at least 8 at N = 4096), a repeated launch bit-equal,
-   and K1 timed at cluster sizes 4, 8 and 16;
+   geometry; K2 / K3: a seeded 5-pose state), each timed beside its plain
+   version with CUDA events. The GN cluster kernel's ptxas registers and
+   spills, K1's cluster shape (C CTAs a stream, at least 8 at N = 4096), a
+   repeated launch bit-equal, and K1 timed at cluster sizes 4, 8 and 16.
+   K2 and K3 also on device (launches queued behind a stream sleep) and
+   host (enqueue clock) beside the launch floor (an empty one-block
+   launch), and on every branch case of tools/pose_chain_cases.py, every
+   output (row and epilogue) within 1e-9 of the plain version;
 4. batched kernels: K4 `fused_gn` (one stream, 4096 x 80) and K5
    `fused_gn_batched` at both batched deployments' shapes (8 streams x
    4096 queries x 80 slots; 256 x 512 x 16), held against their plain
@@ -47,9 +51,11 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    scans at 8 m/s, 1 m voxels, a 2^17-slot packed map, 8-voxel
    neighbourhood, CV deskew, fused ICP), 120 scans through
    `register_frame_step` with eviction / conditional compaction every 10
-   scans. Launch counters are zeroed just before it and read just after:
-   every kernel must have run, K2 and K3 once per scan. Poses must be
-   finite and the ATE (mid-scan convention) at most 0.12 m;
+   scans. Host reads per scan by call site and aten ops dispatched per
+   scan, over scans 0-19. Launch counters are zeroed just before the timed
+   run and read just after: every kernel must have run, K2 and K3 once per
+   scan. Poses must be finite and the ATE (mid-scan convention) at most
+   0.12 m;
 8. classic slice: bench.py's f64 anchor (mode 5: the same deployment with
    gn_backend="xla", so the f32 point slab) on the same 120 scans — ATE at
    most 0.12 m, host reads per scan counted, no kernel launched;
@@ -57,7 +63,8 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    16-sample IMU packet, a 2-pose EKF trail, ICP-tuned pose noise) on the
    same 120 scans with 100 Hz IMU packets of the trajectory, through
    `lio.step_donated`, eviction / compaction every 10 scans. Host reads
-   per scan over scans 0-19 by call site; launch counters zeroed just
+   per scan over scans 0-19 by call site and ops dispatched per scan;
+   launch counters zeroed just
    before the timed run: K2 and K3 once per scan, K1 launched. Poses
    finite, `used_imu` on every scan after static init, ATE at the scan end
    at most LIO_ATE_LIMIT_M;
@@ -85,6 +92,16 @@ for the device.
 Prints one JSON line with the kernels' numbers, then, as the very last
 line, {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA card or any phase fails.
+
+    python3 chip_smoke.py --measure ROOT
+    python3 chip_smoke.py --turns PARENT
+
+`--measure` runs only K1's checks, K2's and K3's times and the fast and
+LIO slices, on the package of the checkout ROOT, and ends with one line
+`MEASURE {json}`. `--turns` runs `--measure` on the checkout PARENT (a
+`git archive` of an earlier commit, say) and on this one in turns —
+parent, change, change, parent, each in a process of its own — and sets
+their numbers side by side.
 """
 
 from __future__ import annotations
@@ -208,15 +225,23 @@ def _gn_cluster(what, n, nc, streams=1):
     return c
 
 
-def _same_twice(what, fn):
-    """Launch a GN kernel twice on the same inputs; the rows must be equal
-    bit for bit (rank-order cluster reduction)."""
+def _outputs(out) -> tuple:
+    """A kernel's result as a tuple of tensors (a bare tensor: a 1-tuple)."""
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
+def _same_twice(what, fn, quiet=False):
+    """Launch a kernel twice on the same inputs; every output must be equal
+    bit for bit (the GN cluster adds its CTA sums in rank order; K2 / K3
+    have no reduction)."""
     import torch
 
     a, b = fn(), fn()
     torch.cuda.synchronize()
-    _require(torch.equal(a, b), f"{what}: a repeated launch is not bit-equal")
-    print(f"{what}: repeated launch bit-equal")
+    _require(all(torch.equal(x, y) for x, y in zip(_outputs(a), _outputs(b))),
+             f"{what}: a repeated launch is not bit-equal")
+    if not quiet:
+        print(f"{what}: repeated launch bit-equal")
     return a
 
 
@@ -282,7 +307,7 @@ def kernel_phase(dev, cfg):
     import torch
 
     from lidar_imu_slam_tpu_torch.ops import voxel_map
-    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn, pose_chain
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
 
     results = []
     rng = np.random.default_rng(0)
@@ -344,7 +369,35 @@ def kernel_phase(dev, cfg):
                         bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev_ms,
                         cluster=c1, ctas=c1))
 
-    # K2: seeded f64 pose state (5 poses: every branch live)
+    return results + pose_chain_phase(dev, cfg, rng, k1)
+
+
+def _storage_bytes(tensors) -> int:
+    """Bytes of the distinct buffers under `tensors` (views share one)."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def pose_chain_phase(dev, cfg, rng, k1):
+    """K2 and K3 at the seeded 5-pose state, deskew on (K3 on K1's row as
+    the correction and K2's row as the guess): each against its plain
+    version (tol 1e-9), a repeated launch bit-equal, and four times — per
+    call (CUDA events over 200 back-to-back launches), device (launches
+    queued behind a stream sleep), host (the enqueue clock over 1,000
+    calls) and the launch floor (an empty one-block launch,
+    `torch.cuda._sleep(1)`, timed those two ways); device, host and floor
+    are medians of 5 rounds taken in turns (tools/probes.py). The pose
+    step (`pose_step_*` on K3's entry) is K2, K3 and the fast step's pose
+    bookkeeping after them — the next state's pose leaves and accumulators
+    and the f32 map delta — as the step runs them, timed the same three
+    ways over 20 calls (host: 200), medians of 5 rounds."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops.kernels import pose_chain
+    from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pc
+    from lidar_imu_slam_tpu_torch.tools import probes as tp
+
     f64 = dict(dtype=torch.float64, device=dev)
     prev = _se3(rng, 30.0, 0.5)
     pose = prev @ _se3(rng, 0.8, 0.02)
@@ -357,38 +410,95 @@ def kernel_phase(dev, cfg):
     kw = dict(min_motion_th=cfg.icp.min_motion_th,
               initial_threshold=cfg.icp.initial_threshold,
               max_range=cfg.map.max_range, deskew_on=True)
-    row = pose_chain.pose_pre(*pre_args, **kw)
-    row_ref = pose_chain.pose_pre_ref(*pre_args, **kw)
-    err = float((row - row_ref).abs().max())
-    print(f"K2 pose_pre max|d| {err:.3e} (tol 1e-9)")
-    _require(err <= 1e-9, "K2 disagrees with its plain version")
-    ms = _cuda_ms(lambda: pose_chain.pose_pre(*pre_args, **kw), 200)
-    plain_ms = _cuda_ms(lambda: pose_chain.pose_pre_ref(*pre_args, **kw), 20)
-    bound, by = _bound_ms(_nbytes(*pre_args, row), 0.0)  # a few hundred f64 operations
-    print(f"K2 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  bound {bound:.7f} ms ({by})")
-    results.append(dict(name="pose_pre", route="cuda",
-                        source="lidar_imu_slam_tpu_torch/csrc/pose_chain.cu",
-                        replaces=f"{REFERENCE_PKG}/ops/pallas/pose_chain.py:244",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, library_ms=None))
-
-    # K3: the K1 result as the correction, the K2 row as the guess
     mmd = cfg.icp.max_model_deviation
-    post = pose_chain.pose_post(k1, row, max_model_deviation=mmd)
-    post_ref = pose_chain.pose_post_ref(k1, row, max_model_deviation=mmd)
-    err = float((post - post_ref).abs().max())
-    print(f"K3 pose_post max|d| {err:.3e} (tol 1e-9)")
-    _require(err <= 1e-9, "K3 disagrees with its plain version")
-    ms = _cuda_ms(lambda: pose_chain.pose_post(k1, row, max_model_deviation=mmd), 200)
-    plain_ms = _cuda_ms(lambda: pose_chain.pose_post_ref(k1, row, max_model_deviation=mmd), 20)
-    bound, by = _bound_ms(_nbytes(k1, row, post), 0.0)
-    print(f"K3 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  bound {bound:.7f} ms ({by})")
-    results.append(dict(name="pose_post", route="cuda",
-                        source="lidar_imu_slam_tpu_torch/csrc/pose_chain.cu",
-                        replaces=f"{REFERENCE_PKG}/ops/pallas/pose_chain.py:346",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, library_ms=None))
+    row = pose_chain.pose_pre(*pre_args, **kw).row
+    state = (pre_args[0], pre_args[2], pre_args[5])  # state.pose, first_pose, num_poses
+    # the bytes each function needs to read: [R | t] (12 doubles) of each
+    # pose it takes, the 6 entries of model_dev that K2's model error reads,
+    # the scalars; its outputs are counted as written, once each
+    calls = {  # name: (kernel call, plain call, bytes read, TPU kernel, tag)
+        "pose_pre": (lambda: pose_chain.pose_pre(*pre_args, **kw),
+                     lambda: pose_chain.pose_pre_ref(*pre_args, **kw),
+                     8 * (3 * 12 + 6 + 1) + 4 * 2, "pose_chain.py:244", "K2"),
+        "pose_post": (lambda: pose_chain.pose_post(k1, row, *state, max_model_deviation=mmd),
+                      lambda: pose_chain.pose_post_ref(k1, row, *state,
+                                                       max_model_deviation=mmd),
+                      8 * 4 * 12 + 4, "pose_chain.py:346", "K3"),
+    }
+
+    def pose_step():  # the kernels write the state's pose leaves and the delta
+        pre = pose_chain.pose_pre(*pre_args, **kw)
+        post = pose_chain.pose_post(k1, pre.row, *state, max_model_deviation=mmd)
+        return kiss_icp.fast_state(None, pre, post), post.delta_R, post.delta_t
+
+    outs = {}
+    for name, (fn, ref_fn, _, _, tag) in calls.items():
+        outs[name] = _same_twice(tag, fn)
+        err = pc.max_err(outs[name], ref_fn())
+        print(f"{tag} {name} max|d| {err:.3e} (tol 1e-9)")
+        _require(err <= 1e-9, f"{tag} disagrees with its plain version")
+        outs[name] = (outs[name], err)
+    fns = [c[0] for c in calls.values()] + [lambda: torch.cuda._sleep(1)]
+    *times, floor = tp._times_in_turns(fns, dev)
+    # the pose step takes 20 calls behind the stream's sleep, not 100: a
+    # step of tensor ops enqueues for ~0.3 ms a call, and the device time
+    # needs the queueing done within half the sleep
+    step = dict(zip(("ms", "device_ms", "host_ms"), map(np.median, zip(*[
+        (_cuda_ms(pose_step, 20), tp.device_ms(pose_step, 20), tp.host_ms(pose_step, 200))
+        for _ in range(5)]))))
+    print(f"K2 + K3 + the fast step's pose bookkeeping: {step['ms']:.4f} ms/call (events over "
+          f"20); device {step['device_ms']:.4f}, host {step['host_ms']:.4f} (medians of 5 "
+          f"rounds)")
+    results = []
+    for (name, (fn, ref_fn, n_read, line, tag)), t in zip(calls.items(), times):
+        out, err = outs[name]
+        ms = _cuda_ms(fn, 200)
+        plain_ms = _cuda_ms(ref_fn, 20)
+        # a few hundred f64 operations: the bytes bound it
+        bound, by = _bound_ms(n_read + _storage_bytes(out), 0.0)
+        print(f"{tag} {ms:.4f} ms/launch (events over 200); device {t['device_ms']:.4f}, "
+              f"host {t['host_ms']:.4f}; launch floor device {floor['device_ms']:.4f}, host "
+              f"{floor['host_ms']:.4f} (medians of 5 rounds in turns); plain {plain_ms:.4f} "
+              f"ms/call; bound {bound:.7f} ms ({by})")
+        results.append(dict(name=name, route="cuda",
+                            source="lidar_imu_slam_tpu_torch/csrc/pose_chain.cu",
+                            replaces=f"{REFERENCE_PKG}/ops/pallas/{line}",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None, device_ms=t["device_ms"],
+                            host_ms=t["host_ms"], floor_ms=floor["device_ms"],
+                            floor_host_ms=floor["host_ms"]))
+    results[-1].update({f"pose_step_{k}": v for k, v in step.items()})
     return results
+
+
+def pose_chain_cases_phase(dev):
+    """K2 then K3 on each branch case of tools/pose_chain_cases.py (num_poses
+    0 / 1 / 2 / 5, deskew off, a relative rotation of sine 0 and of 1e-8,
+    not moved, not accepted, no samples, diverged, diverged on the first
+    scan): every output within 1e-9 of the plain version on the same
+    inputs, the i32 outputs equal, the f32 map delta the kernel's own f64
+    delta rounded to f32, a repeated launch bit-equal. These launches are
+    counted off the main path."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import pose_chain
+    from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pc
+
+    worst = 0.0
+    for name in pc.CASES:
+        args, kw, corr = pc.case(name, dev)
+        pre = _same_twice(f"K2 ({name})", lambda: pose_chain.pose_pre(*args, **kw), quiet=True)
+        post_args = pc.post_args(args, corr, pre.row)
+        post = _same_twice(f"K3 ({name})", lambda: pose_chain.pose_post(
+            *post_args, max_model_deviation=pc.MAX_MODEL_DEVIATION), quiet=True)
+        err = max(pc.max_err(pre, pose_chain.pose_pre_ref(*args, **kw)),
+                  pc.max_err(post, pose_chain.pose_post_ref(
+                      *post_args, max_model_deviation=pc.MAX_MODEL_DEVIATION)))
+        _require(err <= 1e-9, f"K2 / K3 ({name}): {err:.3e} from the plain version")
+        _require(pc.delta_is_own_rounding(post), f"K3 ({name}): the f32 map delta is not its "
+                 "own f64 delta rounded")
+        worst = max(worst, err)
+    print(f"K2 / K3 on {len(pc.CASES)} branch cases ({', '.join(pc.CASES)}): max|d| {worst:.3e} "
+          f"over every f64 output (tol 1e-9), i32 outputs equal, f32 delta its own f64 delta "
+          f"rounded, repeated launches bit-equal")
 
 
 def small_drive_phase(dev, packed_nn=True):
@@ -464,8 +574,69 @@ def render_hdl_drive(dev):
     return raws, gt
 
 
+def _op_counter():
+    """A dispatch mode that counts the aten ops dispatched under it: `ops`
+    all of them, `compute` those that are not views (each of these may
+    allocate or launch a kernel). The kernels' ctypes launches pass no
+    dispatcher and are not counted."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCounter(TorchDispatchMode):
+        ops = compute = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.compute += not getattr(func, "is_view", False)
+            return func(*args, **(kwargs or {}))
+
+    return OpCounter()
+
+
+def _counting(counter):
+    """Host reads raise a warning (sync debug mode "warn") and ops are
+    counted while the context is open; with counter None, nothing."""
+    import contextlib
+
+    import torch
+
+    if counter is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    torch.cuda.set_sync_debug_mode("warn")
+    stack.callback(torch.cuda.set_sync_debug_mode, 0)
+    stack.enter_context(counter)
+    return stack
+
+
+def _reads_and_ops(run, n_scans=20) -> dict:
+    """Host reads per scan by call site and aten ops dispatched per scan
+    over `run(n_scans, counter)`, which counts its scan loop only (not its
+    set-up)."""
+    import warnings
+
+    counter = _op_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(n_scans, counter)
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                if "called a synchronizing" in str(w.message))
+    return dict(host_reads_per_scan=sum(sites.values()) / n_scans,
+                host_reads_by_site=dict(sites.most_common(8)),
+                ops_per_scan=counter.ops / n_scans,
+                compute_ops_per_scan=counter.compute / n_scans)
+
+
+def _reads_ops_line(what, c: dict) -> str:
+    return (f"{what}: host reads per scan {c['host_reads_per_scan']:.2f} over scans 0-19 (sync "
+            f"debug mode), by call site {c['host_reads_by_site']}; aten ops dispatched per "
+            f"scan {c['ops_per_scan']:.2f}, {c['compute_ops_per_scan']:.2f} of them not views")
+
+
 def slice_phase(dev, cfg, raws, gt):
-    """The 120-scan HDL-64E-scale drive on the card."""
+    """The 120-scan HDL-64E-scale drive on the card. Host reads by call
+    site and ops dispatched, per scan over scans 0-19; launch counters
+    zeroed just before the timed 120-scan run and read just after. Returns
+    (launches, the drive's numbers)."""
     import torch
 
     from lidar_imu_slam_tpu_torch.models import kiss_icp
@@ -477,32 +648,34 @@ def slice_phase(dev, cfg, raws, gt):
     body = cfg.replace(map=dataclasses.replace(cfg.map, auto_evict=False, auto_rebuild=False))
     cap = cfg.map.capacity
 
-    def run(n_scans):
+    def run(n_scans, counter=None):
         state = kiss_icp.init_state(cfg, dev)
         poses, iters, ms = [], [], []
         torch.cuda.synchronize()
         wall0 = time.perf_counter()
-        for i in range(n_scans):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            scan = preprocess_scan(raws[i], body.lidar)
-            state, out = kiss_icp.register_frame_step(state, scan, body)
-            if (i + 1) % BLOCK == 0:
-                m = voxel_map.evict_far(state.map, state.pose[:3, 3], cfg.map, inplace=True)
-                if bool((m.next_slot > cap - cap // 4) & (m.tombstones > cap // 16)):
-                    m = voxel_map.rebuild(m, cfg.map)
-                state = state._replace(map=m)
-            ev1.record()
-            poses.append(out.pose)
-            iters.append(out.icp_iterations)
-            ms.append((ev0, ev1))
+        with _counting(counter):
+            for i in range(n_scans):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                scan = preprocess_scan(raws[i], body.lidar)
+                state, out = kiss_icp.register_frame_step(state, scan, body)
+                if (i + 1) % BLOCK == 0:
+                    m = voxel_map.evict_far(state.map, state.pose[:3, 3], cfg.map, inplace=True)
+                    if bool((m.next_slot > cap - cap // 4) & (m.tombstones > cap // 16)):
+                        m = voxel_map.rebuild(m, cfg.map)
+                    state = state._replace(map=m)
+                ev1.record()
+                poses.append(out.pose)
+                iters.append(out.icp_iterations)
+                ms.append((ev0, ev1))
         torch.cuda.synchronize()
         wall = time.perf_counter() - wall0
         step_ms = np.array([a.elapsed_time(b) for a, b in ms])
         return state, torch.stack(poses).cpu().numpy(), torch.stack(iters).cpu().numpy(), wall, step_ms
 
     run(3)  # warm-up on a throwaway state (lazy module / kernel loading)
+    counts = _reads_and_ops(run)
     _common.reset_launches()
     state, poses, iters, wall, step_ms = run(N_SCANS)
     launches = dict(_common.LAUNCHES)
@@ -510,17 +683,21 @@ def slice_phase(dev, cfg, raws, gt):
     ate = _ate(poses, gt, shift=0.5)
     voxels = int(voxel_map.num_voxels(state.map))
     drops = int(state.map.drops)
-    print(f"slice: {N_SCANS / wall:.2f} scans/s  p50 {np.percentile(step_ms, 50):.3f} ms  "
-          f"p95 {np.percentile(step_ms, 95):.3f} ms per scan (CUDA events)")
+    stats = dict(scans_per_s=N_SCANS / wall, p50_ms=float(np.percentile(step_ms, 50)),
+                 p95_ms=float(np.percentile(step_ms, 95)), ate_m=ate,
+                 icp_iterations=float(iters.mean()), **counts)
+    print(f"slice: {stats['scans_per_s']:.2f} scans/s  p50 {stats['p50_ms']:.3f} ms  "
+          f"p95 {stats['p95_ms']:.3f} ms per scan (CUDA events)")
     print(f"slice: ICP iterations mean {iters.mean():.2f} max {iters.max()}  "
           f"map voxels {voxels}  drops {drops}  launches {launches}")
+    print(_reads_ops_line("slice", counts))
     print(f"slice: ATE {ate:.4f} m (mid-scan, limit {ATE_LIMIT_M})")
     for name in ("fused_gn_carry", "pose_pre", "pose_post"):
         _require(launches[name] > 0, f"slice: kernel {name} never launched")
     _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
              "slice: pose kernels did not run once per scan")
     _require(ate <= ATE_LIMIT_M, f"slice: ATE {ate:.4f} m above {ATE_LIMIT_M}")
-    return launches
+    return launches, stats
 
 
 def mc_cfg(cfgmod):
@@ -1025,7 +1202,7 @@ def classic_slice_phase(dev, cfg64, raws, gt):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "synchroniz" in str(w.message))
+                                if "called a synchronizing" in str(w.message))
     syncs = sum(sites.values())
     _common.reset_launches()
     state, out, poses, iters, wall, step_ms = run(N_SCANS)
@@ -1219,10 +1396,9 @@ def lio_cfg(cfg):
 def lio_slice_phase(dev, cfg, raws, gt):
     """bench.py:_bench_lio on the card: 120 HDL-64E scans with 100 Hz IMU
     packets through lio.step_donated, eviction and conditional compaction
-    every 10 scans. Host reads counted over scans 0-19; launch counters
-    zeroed just before the timed 120-scan run and read just after."""
-    import warnings
-
+    every 10 scans. Host reads by call site and ops dispatched, per scan
+    over scans 0-19; launch counters zeroed just before the timed 120-scan
+    run and read just after. Returns the drive's numbers."""
     import torch
 
     from lidar_imu_slam_tpu_torch.models import lio
@@ -1235,14 +1411,12 @@ def lio_slice_phase(dev, cfg, raws, gt):
     cap = cfg.map.capacity
     packets = _imu_packets(gt, LIO_IMU_CAP, dev)
 
-    def run(n_scans, count_reads=False):
+    def run(n_scans, counter=None):
         state = lio.init_state(cfg, dev)
         outs, ms = [], []
         torch.cuda.synchronize()
-        if count_reads:  # the steps' own host reads, not the set-up's
-            torch.cuda.set_sync_debug_mode("warn")
         wall0 = time.perf_counter()
-        try:
+        with _counting(counter):  # the steps' own host reads and ops, not the set-up's
             for i in range(n_scans):
                 ev0 = torch.cuda.Event(enable_timing=True)
                 ev1 = torch.cuda.Event(enable_timing=True)
@@ -1258,8 +1432,6 @@ def lio_slice_phase(dev, cfg, raws, gt):
                 ev1.record()
                 outs.append((out.pose, out.icp_iterations, out.imu_initialized, out.used_imu))
                 ms.append((ev0, ev1))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - wall0
         step_ms = np.array([a.elapsed_time(b) for a, b in ms])
@@ -1267,24 +1439,22 @@ def lio_slice_phase(dev, cfg, raws, gt):
         return state, poses, iters, inited, used, wall, step_ms
 
     run(3)  # warm-up on a throwaway state
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        run(20, count_reads=True)
-    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "synchroniz" in str(w.message))
+    counts = _reads_and_ops(run)
     _common.reset_launches()
     state, poses, iters, inited, used, wall, step_ms = run(N_SCANS)
     launches = dict(_common.LAUNCHES)
     _require(np.isfinite(poses).all(), "LIO slice: non-finite pose")
     ate = _ate(poses, gt, shift=1.0)
     init_scan = int(np.argmax(inited)) if inited.any() else -1
-    print(f"LIO slice: {N_SCANS / wall:.2f} scans/s  p50 {np.percentile(step_ms, 50):.3f} ms  "
-          f"p95 {np.percentile(step_ms, 95):.3f} ms per scan (CUDA events)")
+    stats = dict(scans_per_s=N_SCANS / wall, p50_ms=float(np.percentile(step_ms, 50)),
+                 p95_ms=float(np.percentile(step_ms, 95)), ate_m=ate,
+                 icp_iterations=float(iters.mean()), **counts)
+    print(f"LIO slice: {stats['scans_per_s']:.2f} scans/s  p50 {stats['p50_ms']:.3f} ms  "
+          f"p95 {stats['p95_ms']:.3f} ms per scan (CUDA events)")
     print(f"LIO slice: ICP iterations mean {iters.mean():.2f} max {iters.max()} (JAX 6.57 / 28, "
           f"BENCH_r05)  imu_initialized from scan {init_scan}  used_imu on {int(used.sum())} "
           f"scans  map voxels {int(voxel_map.num_voxels(state.odo.map))}  launches {launches}")
-    print(f"LIO slice: host reads per scan {sum(sites.values()) / 20:.2f} over scans 0-19 "
-          f"(sync debug mode), by call site {dict(sites.most_common(8))}")
+    print(_reads_ops_line("LIO slice", counts))
     print(f"LIO slice: ATE {ate:.4f} m (scan end, shift 1.0; JAX 0.2075, BENCH_r05; limit "
           f"{LIO_ATE_LIMIT_M})")
     _require(init_scan >= 0, "LIO slice: the IMU static initialization never completed")
@@ -1293,20 +1463,11 @@ def lio_slice_phase(dev, cfg, raws, gt):
              "LIO slice: K2 / K3 did not run once per scan")
     _require(launches["fused_gn_carry"] > 0, "LIO slice: K1 never launched")
     _require(ate <= LIO_ATE_LIMIT_M, f"LIO slice: ATE {ate:.4f} m above {LIO_ATE_LIMIT_M}")
+    return stats
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    print(torch.__version__, torch.version.cuda, sys.version.split()[0])
-    card = _card_line()
-    print(card)
-
-    from lidar_imu_slam_tpu_torch import config as cfgmod
+def _build_kernels() -> None:
+    """Build (or find) the kernel library and print ptxas' report."""
     from lidar_imu_slam_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
@@ -1319,10 +1480,98 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
 
+
+def measure(dev) -> dict:
+    """`--measure`: K2's and K3's times (with K1's checks before them, as
+    in the smoke run), then the fast and LIO slices; returns their
+    numbers."""
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+
+    cfg = bench_cfg(cfgmod, POINTS_PER_SCAN)
+    kernels = {k["name"]: {key: v for key, v in k.items() if key.endswith("ms")}
+               for k in kernel_phase(dev, cfg) if k["name"] in ("pose_pre", "pose_post")}
+    raws, gt = render_hdl_drive(dev)
+    _, fast = slice_phase(dev, cfg, raws, gt)
+    return dict(kernels=kernels, slice=fast, lio=lio_slice_phase(dev, cfg, raws, gt))
+
+
+MEASURE_KEYS = {  # what --turns sets side by side
+    "kernels": ("ms", "device_ms", "host_ms", "floor_ms", "floor_host_ms", "pose_step_ms",
+                "pose_step_device_ms", "pose_step_host_ms"),
+    "slice": ("scans_per_s", "p50_ms", "ops_per_scan", "compute_ops_per_scan",
+              "host_reads_per_scan", "ate_m"),
+    "lio": ("scans_per_s", "p50_ms", "ops_per_scan", "compute_ops_per_scan",
+            "host_reads_per_scan", "ate_m"),
+}
+
+
+def turns(parent: str) -> int:
+    """`--turns PARENT`: `--measure` on the checkout at PARENT and on this
+    one in turns (parent, change, change, parent), each in a process of
+    its own that builds its checkout's kernels; then the numbers side by
+    side, the host reads by call site of the first of each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for label, root in (("parent", parent), ("change", here), ("change", here),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
+                              capture_output=True, text=True, timeout=1200)
+        print(f"== {label} ({root}): exit {proc.returncode}")
+        print(proc.stdout + proc.stderr[-4000:])
+        _require(proc.returncode == 0, f"--measure on {root} failed")
+        tail = [ln for ln in proc.stdout.splitlines() if ln.startswith("MEASURE ")]
+        runs.append((label, json.loads(tail[-1].removeprefix("MEASURE "))))
+    print("turns: " + " / ".join(label for label, _ in runs))
+    for part, keys in MEASURE_KEYS.items():
+        for name in (runs[0][1]["kernels"] if part == "kernels" else (part,)):
+            for key in keys:
+                vals = [(r[part][name] if part == "kernels" else r[part]).get(key) for _, r in runs]
+                if None in vals:
+                    continue
+                print(f"turns: {name} {key} " + " / ".join(f"{v:.4f}" for v in vals))
+    for part in ("slice", "lio"):
+        for label, r in (runs[0], runs[1]):
+            print(f"turns: {part} host reads by call site ({label}) {r[part]['host_reads_by_site']}")
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU.")
+    ap.add_argument("--measure", metavar="ROOT",
+                    help="only K2 / K3 times and the fast and LIO slices' numbers, of the "
+                         "package in the checkout ROOT; the last line is MEASURE {json}")
+    ap.add_argument("--turns", metavar="PARENT",
+                    help="--measure on the checkout PARENT and on this one, in turns")
+    args = ap.parse_args(argv)
+    if args.measure:
+        sys.path.insert(0, os.path.abspath(args.measure))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(torch.__version__, torch.version.cuda, sys.version.split()[0])
+    card = _card_line()
+    print(card)
+    if args.turns:
+        return turns(args.turns)
+
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+
+    _build_kernels()
+    if args.measure:
+        print("MEASURE " + json.dumps(measure(dev)))
+        return 0
+
     cfg = bench_cfg(cfgmod, POINTS_PER_SCAN)
     cfg64 = bench_cfg(cfgmod, POINTS_PER_SCAN, gn_backend="xla")
-    kernels = (kernel_phase(dev, cfg) + batched_kernel_phase(dev, cfg, cfgmod)
-               + [nn_kernel_phase(dev)])
+    kernels = kernel_phase(dev, cfg)
+    pose_chain_cases_phase(dev)
+    kernels += batched_kernel_phase(dev, cfg, cfgmod) + [nn_kernel_phase(dev)]
     probe_kernels, probe_launches = probe_phase(dev)
     kernels += probe_kernels
     small_drive_phase(dev)
@@ -1330,7 +1579,7 @@ def main() -> int:
     small_classic_phase(dev)
     small_lio_phase(dev)
     raws, gt = render_hdl_drive(dev)
-    launches = slice_phase(dev, cfg, raws, gt)
+    launches, _ = slice_phase(dev, cfg, raws, gt)
     launches.update(probe_launches)
     lio_slice_phase(dev, cfg, raws, gt)
     state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
@@ -1356,7 +1605,7 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         code = main()
-    except SmokeFailure as e:
+    except (SmokeFailure, AssertionError) as e:  # AssertionError: pose_chain_cases.max_err
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         code = 1
     sys.exit(code)

@@ -10,9 +10,10 @@ Two paths, chosen by the config as in the JAX package:
   (`pose_pre`: CV guess, adaptive sigma, deskew twist) -> CV deskew ->
   world transform at the guess -> fused grouped downsample -> source
   downsample + IQR mask -> fused ICP (kernel K1 per round) -> kernel K3
-  (`pose_post`: compose, divergence gate, orthonormalize, map delta) ->
-  map insert / evict. Host syncs per scan: one per ICP round, plus one for
-  the conditional compaction when `cfg.map.auto_rebuild` is on.
+  (`pose_post`: compose, divergence gate, orthonormalize, map delta, and
+  the next state's pose bookkeeping) -> map insert / evict. Host syncs per
+  scan: one per ICP round, plus one for the conditional compaction when
+  `cfg.map.auto_rebuild` is on.
 * the classic branch (every other config): the pose chain in plain f64
   tensor code (`register_core`) and the ICP the config selects —
   - gn_backend="xla" (the default config): the f64 loops over candidates
@@ -90,7 +91,7 @@ class CoreOutput(NamedTuple):
 
 class FastCoreOutput(NamedTuple):
     new_map: voxel_map.VoxelMap
-    prow: torch.Tensor  # (48,) f64 pose_post row
+    post: pose_chain.PosePost  # kernel K3's outputs: the new pose and its bookkeeping
     source: torch.Tensor
     source_mask: torch.Tensor
     map_points: torch.Tensor
@@ -224,10 +225,10 @@ def register_core(m: voxel_map.VoxelMap, threshold: icp_ops.ThresholdState, move
     )
 
 
-def pose_pre_row(state: KissState, cfg: PipelineConfig) -> torch.Tensor:
+def pose_pre_row(state: KissState, cfg: PipelineConfig) -> pose_chain.PoseRow:
     """Kernel K2 on the pose state: the (32,) f64 row of CV guess, sigma,
-    moved flag, threshold accumulators and deskew twist pieces
-    (ops/kernels/pose_chain.py)."""
+    moved flag, threshold accumulators and deskew twist pieces, and the
+    accumulators as state tensors (ops/kernels/pose_chain.py)."""
     thr = state.threshold
     return pose_chain.pose_pre(
         state.pose, state.pose_prev, state.first_pose, thr.model_error_sq,
@@ -239,15 +240,17 @@ def pose_pre_row(state: KissState, cfg: PipelineConfig) -> torch.Tensor:
     )
 
 
-def _fast_trunk(m: voxel_map.VoxelMap, deskewed_xyz, mask, tau, guess: torch.Tensor,
+def _fast_trunk(state: KissState, deskewed_xyz, mask, tau, guess: torch.Tensor,
                 sigma: torch.Tensor, cfg: PipelineConfig,
                 inplace: bool = False) -> FastCoreOutput:
-    """The registration trunk shared by the lidar-only and (later) LIO
-    paths: world transform at the guess, fused grouped downsample, IQR
-    source mask, fused ICP, kernel K3, map insert / evict (+ conditional
-    compaction). `guess` is a 1-D f64 whose first 12 entries are the guess
-    [R 9 | t 3] (the pose_pre row); `sigma` the () f64 adaptive threshold.
-    With `inplace` the map tables are updated in place."""
+    """The registration trunk shared by the lidar-only and LIO paths: world
+    transform at the guess, fused grouped downsample, IQR source mask,
+    fused ICP, kernel K3 (on the state's map and pose history), map insert
+    / evict (+ conditional compaction). `guess` is a 1-D f64 whose first 12
+    entries are the guess [R 9 | t 3] (the pose_pre row, or LIO's IMU
+    guess); `sigma` the () f64 adaptive threshold. With `inplace` the map
+    tables are updated in place."""
+    m = state.map
     tg = guess[9:12].to(torch.float32)
     world = lie.rotate_points(guess[:9].reshape(3, 3), deskewed_xyz) + tg
     g = voxel_map.fused_downsample(
@@ -273,19 +276,19 @@ def _fast_trunk(m: voxel_map.VoxelMap, deskewed_xyz, mask, tau, guess: torch.Ten
         min_correspondences=cfg.icp.min_correspondences,
         max_step_norm=cfg.icp.max_step_norm, n_inner=cfg.icp.fused_inner,
     )
-    prow = pose_chain.pose_post(res.pose, guess,
+    post = pose_chain.pose_post(res.pose, guess, state.pose, state.first_pose,
+                                state.num_poses,
                                 max_model_deviation=cfg.icp.max_model_deviation)
 
     # map update with the correction delta only (reference icp.cpp:81);
     # keys from the PRE-correction grouping (unique per group)
-    g_corr = g._replace(points=lie.rotate_points(prow[13:22].reshape(3, 3), g.points)
-                        + prow[22:25].to(torch.float32))
+    g_corr = g._replace(points=lie.rotate_points(post.delta_R, g.points) + post.delta_t)
     pre_keys = voxel_map.pack_key(voxel_map.voxel_of(g.points, cfg.map.voxel_size))
     new_map = voxel_map.insert_grouped(m, g_corr, cfg.map, keys=pre_keys, inplace=inplace)
     # the insert produced (or, in place, owns) every table the eviction
     # rewrites, so the eviction always works in place
     if cfg.map.auto_evict:
-        new_map = voxel_map.evict_far(new_map, prow[9:12], cfg.map, inplace=True)
+        new_map = voxel_map.evict_far(new_map, post.row[9:12], cfg.map, inplace=True)
     if cfg.map.auto_rebuild:
         cap = cfg.map.capacity
         need = (new_map.next_slot > cap - cap // 8) & (new_map.tombstones > cap // 16)
@@ -293,7 +296,7 @@ def _fast_trunk(m: voxel_map.VoxelMap, deskewed_xyz, mask, tau, guess: torch.Ten
             new_map = voxel_map.rebuild(new_map, cfg.map)
     return FastCoreOutput(
         new_map=new_map,
-        prow=prow,
+        post=post,
         source=source,
         source_mask=source_mask,
         map_points=g_corr.points,
@@ -307,38 +310,44 @@ def _fast_trunk(m: voxel_map.VoxelMap, deskewed_xyz, mask, tau, guess: torch.Ten
     )
 
 
+def fast_state(new_map: voxel_map.VoxelMap, pre: pose_chain.PoseRow,
+               post: pose_chain.PosePost) -> KissState:
+    """The next state of the fast path (JAX kiss_icp.py:409-420) from
+    kernel K2's and K3's outputs: the kernels wrote every pose leaf and
+    accumulator, so nothing is computed here. The lidar-only and LIO fast
+    steps both build their state with it."""
+    return KissState(
+        map=new_map,
+        pose=post.pose,
+        pose_prev=post.pose_prev,
+        first_pose=post.first_pose,
+        num_poses=post.num_poses,
+        threshold=icp_ops.ThresholdState(pre.model_error_sq, pre.num_samples,
+                                         post.model_deviation),
+    )
+
+
 def _register_frame_fast(state: KissState, scan: Scan, cfg: PipelineConfig,
                          inplace: bool = False):
     """The fast path: pose bookkeeping in kernels K2/K3 around the fused
     ICP trunk (JAX kiss_icp.py:382), all pose math f64."""
-    row = pose_pre_row(state, cfg)
+    pre = pose_pre_row(state, cfg)
+    row = pre.row
     # vector deskew driven by the kernel's twist scalars (identity when the
     # kernel gated them to zero)
     deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, row[16:29])
-    core = _fast_trunk(state.map, deskewed_xyz, scan.mask, scan.tau, row, row[12],
-                       cfg, inplace=inplace)
-    prow = core.prow
-    new_pose = lie.make_transform(prow[0:9].reshape(3, 3), prow[9:12])
-    thr_state = icp_ops.ThresholdState(
-        row[14].clone(), row[15].to(torch.int32), prow[25:41].reshape(4, 4).clone()
-    )
-    first = state.num_poses == 0
-    new_state = KissState(
-        map=core.new_map,
-        pose=new_pose,
-        pose_prev=torch.where(first, new_pose, state.pose),
-        first_pose=torch.where(first, new_pose, state.first_pose),
-        num_poses=state.num_poses + 1,
-        threshold=thr_state,
-    )
+    core = _fast_trunk(state, deskewed_xyz, scan.mask, scan.tau, row, row[12], cfg,
+                       inplace=inplace)
+    new_state = fast_state(core.new_map, pre, core.post)
     out = FrameOutput(
-        pose=new_pose,
+        pose=new_state.pose,
         keypoints=core.source,
         keypoints_mask=core.source_mask,
         deskewed=core.map_points,
         deskewed_mask=core.map_points_mask,
-        icp_iterations=torch.tensor(core.iterations, dtype=torch.int32,
-                                    device=new_pose.device),
+        # a fill, not a host-to-device copy of the loop's count (a sync)
+        icp_iterations=torch.full((), core.iterations, dtype=torch.int32,
+                                  device=row.device),
         num_correspondences=core.num_correspondences,
         residual_rms=core.residual_rms,
         sigma=core.sigma,

@@ -29,7 +29,6 @@ import torch
 
 from ..config import PipelineConfig
 from ..ops import deskew as deskew_ops
-from ..ops import icp as icp_ops
 from ..ops import imu as imu_ops
 from ..ops import lie, voxel_map
 from ..ops.preprocess import Scan
@@ -140,15 +139,13 @@ def _imu_branch(state: LioState, full: ekf_mod.ImuPacket, scan: Scan, cfg: Pipel
     return e, deskewed, lie.compose(ekf_mod.pose_matrix(e), _imu_to_lidar(e))
 
 
-def _fast_outputs(row, fcore):
-    """The fast trunk's pose and threshold state (as `_register_frame_fast`)."""
-    prow = fcore.prow
-    pose = lie.make_transform(prow[0:9].reshape(3, 3), prow[9:12])
-    thr = icp_ops.ThresholdState(row[14].clone(), row[15].to(torch.int32),
-                                 prow[25:41].reshape(4, 4).clone())
-    dev = pose.device
+def _fast_outputs(fcore, odo: kiss_icp.KissState):
+    """The fast trunk's outputs as a classic `CoreOutput`, with `odo` the
+    next odometry state (`kiss_icp.fast_state`, as `_register_frame_fast`
+    builds it)."""
+    dev = odo.pose.device
     return kiss_icp.CoreOutput(
-        new_map=fcore.new_map, threshold=thr, pose=pose,
+        new_map=fcore.new_map, threshold=odo.threshold, pose=odo.pose,
         keypoints=fcore.source, keypoints_mask=fcore.source_mask,
         map_points=fcore.map_points, map_points_mask=fcore.map_points_mask,
         # a fill, not a host-to-device copy of the loop's count
@@ -180,12 +177,12 @@ def step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineCo
     ekf_state = state.ekf  # seeding happens after registration (see below)
 
     # pre-ICP bookkeeping row (fast path): CV guess, sigma, deskew twist
-    row = kiss_icp.pose_pre_row(odo, cfg) if fast else None
+    pre = kiss_icp.pose_pre_row(odo, cfg) if fast else None
     if use_imu:
         ekf_state, deskewed_xyz, init_guess = _imu_branch(state, full, scan, cfg)
     elif fast:
         # kernel-gated twist: identity when deskew is off or < 3 poses
-        deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, row[16:29])
+        deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, pre.row[16:29])
         init_guess = None  # row[:12] is the guess
     else:
         deskewed_xyz = scan.xyz
@@ -198,17 +195,30 @@ def step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineCo
         last_pose = kiss_icp._where(odo.num_poses == 0, kiss_icp._eye4(dev), odo.pose)
         init_guess = lie.compose(last_pose, kiss_icp.get_prediction_model(odo))
 
-    # registration: the trunk shared with the lidar-only step
+    # registration: the trunk shared with the lidar-only step, then the map
+    # and pose bookkeeping (on the fast trunk, kernels K2 / K3 wrote it: the
+    # accumulators come from K2 whichever guess K3 composed with)
     if fast:
-        guess = row if init_guess is None else torch.cat(
+        guess = pre.row if init_guess is None else torch.cat(
             [init_guess[:3, :3].reshape(9), init_guess[:3, 3]])
-        core = _fast_outputs(row, kiss_icp._fast_trunk(
-            odo.map, deskewed_xyz, scan.mask, scan.tau, guess, row[12], cfg, inplace=inplace))
+        fcore = kiss_icp._fast_trunk(odo, deskewed_xyz, scan.mask, scan.tau, guess,
+                                     pre.row[12], cfg, inplace=inplace)
+        new_odo = kiss_icp.fast_state(fcore.new_map, pre, fcore.post)
+        core = _fast_outputs(fcore, new_odo)
     else:
         moved = kiss_icp.has_moved(odo, cfg.icp.min_motion_th)
         # the JAX LIO step hands register_core no per-point time
         core = kiss_icp.register_core(odo.map, odo.threshold, moved, deskewed_xyz, scan.mask,
                                       init_guess, cfg, inplace=inplace)
+        first = odo.num_poses == 0
+        new_odo = kiss_icp.KissState(
+            map=core.new_map,
+            pose=core.pose,
+            pose_prev=torch.where(first, core.pose, odo.pose),
+            first_pose=torch.where(first, core.pose, odo.first_pose),
+            num_poses=odo.num_poses + 1,
+            threshold=core.threshold,
+        )
 
     # EKF measurement update + trail maintenance
     if use_imu:
@@ -249,16 +259,6 @@ def step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineCo
             window_time=torch.clamp(tw, min=0.0))
         ekf_state = ekf_mod.select(just_done, seeded, ekf_state)
 
-    # map + pose bookkeeping
-    first = odo.num_poses == 0
-    new_odo = kiss_icp.KissState(
-        map=core.new_map,
-        pose=core.pose,
-        pose_prev=torch.where(first, core.pose, odo.pose),
-        first_pose=torch.where(first, core.pose, odo.first_pose),
-        num_poses=odo.num_poses + 1,
-        threshold=core.threshold,
-    )
     # carry the packet's last valid sample for the next scan
     n_valid = torch.sum(full.mask)
     last = torch.clamp(n_valid - 1, min=0)

@@ -8,10 +8,10 @@ or raises — there is no fallback.
 
 Launch path: `bind` binds a C entry of the library (its ctypes argtypes)
 once. The lean path of a wrapper whose kernel is as short as its launch
-(`lean_entry`) checks with a few direct attribute comparisons and reads
-the current stream's raw handle without building a `torch.cuda.Stream`,
-so the host spends on a call little more than the ctypes call and one
-`new_empty`.
+(`lean_entry`) checks with a few direct attribute comparisons (`expect`
+of a fixed shape) and reads the current stream's raw handle without building a
+`torch.cuda.Stream`, so the host spends on a call little more than the
+ctypes call and its outputs' `new_empty`.
 """
 
 from __future__ import annotations
@@ -47,12 +47,16 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 def expect(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
            min_numel: int | None = None) -> None:
     """Raise unless `t` has the dtype, shape (None entries: any) and
-    contiguity the kernel takes."""
+    contiguity the kernel takes. A shape with no None entry is one direct
+    comparison."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None:
-        ok = t.dim() == len(shape) and all(
-            s is None or s == d for s, d in zip(shape, t.shape))
+        if None in shape:
+            ok = t.dim() == len(shape) and all(
+                s is None or s == d for s, d in zip(shape, t.shape))
+        else:
+            ok = t.shape == shape
         if not ok:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if min_numel is not None and (t.dim() != 1 or t.numel() < min_numel):
@@ -83,14 +87,15 @@ def bind(cache: dict, name: str, argtypes: list):
     return fn
 
 
-def lean_entry(cache: dict, name: str, argtypes: list, a: torch.Tensor, b: torch.Tensor):
+def lean_entry(cache: dict, name: str, argtypes: list, *tensors: torch.Tensor):
     """The lean launch path: (the bound entry, the raw handle of the current
-    stream of a's device). Loads the library before it looks at the devices
-    (a CPU-only torch has no raw-stream call) and raises unless both
-    tensors lie on one CUDA device."""
+    stream of the first tensor's device). Loads the library before it
+    looks at the devices (a CPU-only torch has no raw-stream call) and
+    raises unless all tensors lie on one CUDA device."""
     fn = bind(cache, name, argtypes)
-    dev = a.get_device()
-    if not (a.is_cuda and b.is_cuda and b.get_device() == dev):
-        raise ValueError(f"kernel needs both tensors on one CUDA device, got {a.device} "
-                         f"and {b.device}")
+    dev = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != dev:
+            raise ValueError("kernel needs all tensors on one CUDA device, got "
+                             f"{[str(t.device) for t in tensors]}")
     return fn, torch._C._cuda_getCurrentRawStream(dev)

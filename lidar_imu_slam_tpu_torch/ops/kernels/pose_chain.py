@@ -1,10 +1,11 @@
 """Per-scan pose bookkeeping kernels K2 (`pose_pre`) and K3 (`pose_post`).
 
 Counterpart of the JAX package's `ops/pallas/pose_chain.py`. The CUDA
-kernels (`csrc/pose_chain.cu`) are single-thread f64 chains that read the
-f64 state tensors directly; the plain versions `pose_pre_ref` /
-`pose_post_ref` compute the same rows with tensor operations. Row layouts
-(the JAX slot order minus the float-float "lo" slots):
+kernels (`csrc/pose_chain.cu`) are one-warp f64 chains that read the f64
+state tensors directly and also write the next state's pose bookkeeping;
+the plain versions `pose_pre_ref` / `pose_post_ref` compute the same
+outputs with tensor operations. Row layouts (the JAX slot order minus the
+float-float "lo" slots):
 
   pose_pre row (32,) f64:
     [0:9] guess R  [9:12] guess t  [12] sigma  [13] moved  [14] thr_sse'
@@ -13,37 +14,55 @@ f64 state tensors directly; the plain versions `pose_pre_ref` /
   pose_post row (48,) f64:
     [0:9] new pose R  [9:12] new pose t  [12] diverged  [13:22] delta R
     [22:25] delta t  [25:41] model_deviation' (4x4 row-major)  [41:48] 0
+
+Both wrappers take `_common`'s lean launch path: each kernel takes about
+as long on the card as its launch takes on the host. K3's outputs lie in
+three buffers (f64, i32, f32) carved into views.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from ..lie import cross
+from ..lie import cross, make_transform
 from . import _build
-from ._common import LAUNCHES, expect, expect_cuda, on_cpu, stream_handle
+from ._common import LAUNCHES, expect, lean_entry, on_cpu
 
 PRE_WIDTH = 32
 POST_WIDTH = 48
 F64 = torch.float64
+F32 = torch.float32
+I32 = torch.int32
 
-_fns: dict[str, object] = {}
+_vp, _d, _i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
+_PRE_ARGS = [_vp] * 7 + [_d, _d, _d, _i, _vp, _vp, _vp]
+_POST_ARGS = [_vp] * 5 + [_d, _vp, _vp, _vp, _vp]
+
+_fns: dict[str, object] = {}  # bound C entries (`_common.bind`)
 
 
-def _kernel(name: str):
-    if name not in _fns:
-        lib = _build.load()
-        fn = getattr(lib, name)
-        vp, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
-        if name == "lis_pose_pre":
-            fn.argtypes = [vp] * 7 + [d, d, d, i, vp, vp]
-        else:
-            fn.argtypes = [vp, vp, d, vp, vp]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+class PoseRow(NamedTuple):
+    """K2's outputs."""
+
+    row: torch.Tensor  # (32,) f64, the layout above
+    model_error_sq: torch.Tensor  # () f64 thr_sse' (a view of row[14])
+    num_samples: torch.Tensor  # () i32 thr_n'
+
+
+class PosePost(NamedTuple):
+    """K3's outputs: the row and the next state's pose bookkeeping."""
+
+    row: torch.Tensor  # (48,) f64, the layout above
+    pose: torch.Tensor  # (4, 4) f64 the new pose
+    pose_prev: torch.Tensor  # (4, 4) f64 pose_prev' (the new pose on the first scan)
+    first_pose: torch.Tensor  # (4, 4) f64 first_pose' (likewise)
+    num_poses: torch.Tensor  # () i32 num_poses + 1
+    model_deviation: torch.Tensor  # (4, 4) f64 model_deviation' (identity when diverged)
+    delta_R: torch.Tensor  # (3, 3) f32 map-correction rotation
+    delta_t: torch.Tensor  # (3,) f32 map-correction translation
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +72,7 @@ def _kernel(name: str):
 
 def pose_pre_ref(pose, pose_prev, first_pose, thr_sse, model_dev, num_poses,
                  thr_n, *, min_motion_th: float, initial_threshold: float,
-                 max_range: float, deskew_on: bool) -> torch.Tensor:
+                 max_range: float, deskew_on: bool) -> PoseRow:
     """Plain PyTorch version of the pose_pre kernel (f64)."""
     dev = pose.device
     eye = torch.eye(3, dtype=F64, device=dev)
@@ -120,42 +139,45 @@ def pose_pre_ref(pose, pose_prev, first_pose, thr_sse, model_dev, num_poses,
         wn_o = torch.zeros((), dtype=F64, device=dev)
         kx = v = wxv = wwxv = zero3
 
-    return torch.cat([
+    row = torch.cat([
         R_g.reshape(9), t_g, sigma.reshape(1), moved.to(F64).reshape(1),
         sse.reshape(1), n_new.to(F64).reshape(1), wn_o.reshape(1),
         kx, v, wxv, wwxv, zero3,
     ])
+    return PoseRow(row, row[14], n_new)
 
 
 def pose_pre(pose, pose_prev, first_pose, thr_sse, model_dev, num_poses, thr_n,
              *, min_motion_th: float, initial_threshold: float,
-             max_range: float, deskew_on: bool) -> torch.Tensor:
+             max_range: float, deskew_on: bool) -> PoseRow:
     """The pre-ICP pose chain (CV guess, adaptive sigma, moved flag,
-    threshold accumulators, deskew twist pieces) as one (32,) f64 row.
+    threshold accumulators, deskew twist pieces): the (32,) f64 row and
+    the state-ready accumulators.
 
     pose / pose_prev / first_pose / model_dev (4, 4) f64, thr_sse () f64,
     num_poses / thr_n () int32. CPU tensors: the plain version; CUDA
     tensors: kernel K2."""
-    args = (pose, pose_prev, first_pose, thr_sse, model_dev, num_poses, thr_n)
-    kw = dict(min_motion_th=min_motion_th, initial_threshold=initial_threshold,
-              max_range=max_range, deskew_on=deskew_on)
-    for name, t in zip(("pose", "pose_prev", "first_pose"), args[:3]):
+    for name, t in (("pose", pose), ("pose_prev", pose_prev), ("first_pose", first_pose),
+                    ("model_dev", model_dev)):
         expect(name, t, F64, (4, 4))
     expect("thr_sse", thr_sse, F64, ())
-    expect("model_dev", model_dev, F64, (4, 4))
-    expect("num_poses", num_poses, torch.int32, ())
-    expect("thr_n", thr_n, torch.int32, ())
+    expect("num_poses", num_poses, I32, ())
+    expect("thr_n", thr_n, I32, ())
+    args = (pose, pose_prev, first_pose, thr_sse, model_dev, num_poses, thr_n)
     if on_cpu(*args):
-        return pose_pre_ref(*args, **kw)
-    fn = _kernel("lis_pose_pre")
-    expect_cuda(*args)
-    out = torch.empty(PRE_WIDTH, dtype=F64, device=pose.device)
-    status = fn(*(t.data_ptr() for t in args), float(min_motion_th),
-                float(initial_threshold), float(max_range), int(bool(deskew_on)),
-                out.data_ptr(), stream_handle(pose.device))
+        return pose_pre_ref(*args, min_motion_th=min_motion_th,
+                            initial_threshold=initial_threshold, max_range=max_range,
+                            deskew_on=deskew_on)
+    fn, stream = lean_entry(_fns, "lis_pose_pre", _PRE_ARGS, *args)
+    row = pose.new_empty(PRE_WIDTH)
+    n = num_poses.new_empty(())
+    status = fn(pose.data_ptr(), pose_prev.data_ptr(), first_pose.data_ptr(),
+                thr_sse.data_ptr(), model_dev.data_ptr(), num_poses.data_ptr(),
+                thr_n.data_ptr(), min_motion_th, initial_threshold, max_range,
+                bool(deskew_on), row.data_ptr(), n.data_ptr(), stream)
     _build.check(status, "pose_pre")
     LAUNCHES["pose_pre"] += 1
-    return out
+    return PoseRow(row, row[14], n)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +185,8 @@ def pose_pre(pose, pose_prev, first_pose, thr_sse, model_dev, num_poses, thr_n,
 # ---------------------------------------------------------------------------
 
 
-def pose_post_ref(corr, guess, *, max_model_deviation: float) -> torch.Tensor:
+def pose_post_ref(corr, guess, pose, first_pose, num_poses, *,
+                  max_model_deviation: float) -> PosePost:
     """Plain PyTorch version of the pose_post kernel (f64)."""
     dev = corr.device
     eye = torch.eye(3, dtype=F64, device=dev)
@@ -182,26 +205,42 @@ def pose_post_ref(corr, guess, *, max_model_deviation: float) -> torch.Tensor:
     md = torch.eye(4, dtype=F64, device=dev)
     md[:3, :3] = torch.where(div, eye, R_dev)
     md[:3, 3] = torch.where(div, torch.zeros_like(t_dev), t_dev)
-    return torch.cat([R_o.reshape(9), t_s, div.to(F64).reshape(1), R_d.reshape(9),
-                      t_d, md.reshape(16), torch.zeros(7, dtype=F64, device=dev)])
+    row = torch.cat([R_o.reshape(9), t_s, div.to(F64).reshape(1), R_d.reshape(9),
+                     t_d, md.reshape(16), torch.zeros(7, dtype=F64, device=dev)])
+    new_pose = make_transform(R_o, t_s)
+    first = num_poses == 0
+    return PosePost(row, new_pose, torch.where(first, new_pose, pose),
+                    torch.where(first, new_pose, first_pose), num_poses + 1, md,
+                    R_d.to(F32), t_d.to(F32))
 
 
-def pose_post(corr, guess, *, max_model_deviation: float) -> torch.Tensor:
+def pose_post(corr, guess, pose, first_pose, num_poses, *,
+              max_model_deviation: float) -> PosePost:
     """The post-ICP pose chain (compose, divergence gate, Newton
-    orthonormalization, map delta, model deviation) as one (48,) f64 row.
+    orthonormalization, map delta, model deviation) and the next state's
+    pose bookkeeping.
 
     corr: 1-D f64 whose first 12 entries are the ICP correction [R 9 | t 3]
     (the ICP result); guess: 1-D f64 whose first 12 entries are the guess
-    (the pose_pre row). CPU tensors: the plain version; CUDA: kernel K3."""
+    (the pose_pre row, or LIO's IMU guess); pose / first_pose (4, 4) f64
+    and num_poses () i32 of the state. CPU tensors: the plain version;
+    CUDA: kernel K3."""
     expect("corr", corr, F64, min_numel=12)
     expect("guess", guess, F64, min_numel=12)
-    if on_cpu(corr, guess):
-        return pose_post_ref(corr, guess, max_model_deviation=max_model_deviation)
-    fn = _kernel("lis_pose_post")
-    expect_cuda(corr, guess)
-    out = torch.empty(POST_WIDTH, dtype=F64, device=corr.device)
-    status = fn(corr.data_ptr(), guess.data_ptr(), float(max_model_deviation),
-                out.data_ptr(), stream_handle(corr.device))
+    expect("pose", pose, F64, (4, 4))
+    expect("first_pose", first_pose, F64, (4, 4))
+    expect("num_poses", num_poses, I32, ())
+    args = (corr, guess, pose, first_pose, num_poses)
+    if on_cpu(*args):
+        return pose_post_ref(*args, max_model_deviation=max_model_deviation)
+    fn, stream = lean_entry(_fns, "lis_pose_post", _POST_ARGS, *args)
+    out = pose.new_empty((7, 4, 4))  # row (48) | pose | pose_prev' | first_pose' | md'
+    n = num_poses.new_empty(())
+    delta = pose.new_empty((4, 3), dtype=F32)  # delta R | delta t
+    status = fn(corr.data_ptr(), guess.data_ptr(), pose.data_ptr(), first_pose.data_ptr(),
+                num_poses.data_ptr(), max_model_deviation, out.data_ptr(), n.data_ptr(),
+                delta.data_ptr(), stream)
     _build.check(status, "pose_post")
     LAUNCHES["pose_post"] += 1
-    return out
+    new_pose, prev, first, md = out[3:].unbind(0)
+    return PosePost(out[:3].view(POST_WIDTH), new_pose, prev, first, n, md, delta[:3], delta[3])

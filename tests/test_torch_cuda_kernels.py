@@ -7,7 +7,10 @@ imports no JAX, so it also runs on a machine without it:
 
 (`--noconftest`: tests/conftest.py configures JAX for the CPU suite).
 
-Tolerances: K2 / K3 1e-9 (both sides f64, different operation order); K1,
+Tolerances: K2 / K3 1e-9 on every f64 output, row and epilogue (both
+sides f64, different operation order), the i32 outputs equal, K3's f32 map
+delta bit-equal to the kernel's own f64 delta rounded to f32, and a
+repeated launch bit-equal; K1,
 K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
 1 (the f32 per-query work may contract into FMAs in the kernel), and a
 repeated launch bit-equal (the cluster's fixed-order reduction); K6
@@ -32,6 +35,7 @@ from lidar_imu_slam_tpu_torch.ops.kernels import (_common, icp_gn, nn_bruteforce
 from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
                                                      stack_raw_scans)
 from lidar_imu_slam_tpu_torch.parallel import streams
+from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pose_cases
 from lidar_imu_slam_tpu_torch.tools import probes as probe_tool
 
 pytestmark = pytest.mark.cuda
@@ -52,6 +56,14 @@ def _pose(rng, scale_t, scale_r):
     return lie.se3_exp(torch.from_numpy(xi))
 
 
+def _same_twice(fn, *args, **kw):
+    """A kernel launched twice on the same inputs: every output equal bit
+    for bit."""
+    out, again = fn(*args, **kw), fn(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    return out
+
+
 @pytest.mark.parametrize("num_poses", [0, 1, 2, 5])
 @pytest.mark.parametrize("deskew_on", [True, False])
 def test_pose_pre_kernel_matches_plain(dev, num_poses, deskew_on):
@@ -62,10 +74,11 @@ def test_pose_pre_kernel_matches_plain(dev, num_poses, deskew_on):
             torch.tensor(num_poses, dtype=torch.int32), torch.tensor(7, dtype=torch.int32))
     args = tuple(a.to(dev) for a in args)
     before = _common.LAUNCHES["pose_pre"]
-    row = pose_chain.pose_pre(*args, deskew_on=deskew_on, **KW)
-    assert _common.LAUNCHES["pose_pre"] == before + 1
+    pre = _same_twice(pose_chain.pose_pre, *args, deskew_on=deskew_on, **KW)
+    assert _common.LAUNCHES["pose_pre"] == before + 2
     ref = pose_chain.pose_pre_ref(*args, deskew_on=deskew_on, **KW)
-    torch.testing.assert_close(row, ref, rtol=0, atol=1e-9)
+    assert pose_cases.max_err(pre, ref) <= 1e-9
+    assert pre.model_error_sq.shape == () and pre.num_samples.dtype == torch.int32
 
 
 @pytest.mark.parametrize("diverge", [False, True])
@@ -75,10 +88,58 @@ def test_pose_post_kernel_matches_plain(dev, diverge):
     guess = _pose(rng, 500.0, 0.5)
     c = torch.cat([corr[:3, :3].reshape(9), corr[:3, 3]]).to(dev)
     g = torch.cat([guess[:3, :3].reshape(9), guess[:3, 3]]).to(dev)
-    post = pose_chain.pose_post(c, g, max_model_deviation=10.0)
-    ref = pose_chain.pose_post_ref(c, g, max_model_deviation=10.0)
-    torch.testing.assert_close(post, ref, rtol=0, atol=1e-9)
-    assert float(post[12]) == float(diverge)
+    state = (_pose(rng, 500.0, 0.5).to(dev), _pose(rng, 500.0, 0.5).to(dev),
+             torch.tensor(3, dtype=torch.int32, device=dev))
+    post = _same_twice(pose_chain.pose_post, c, g, *state, max_model_deviation=10.0)
+    ref = pose_chain.pose_post_ref(c, g, *state, max_model_deviation=10.0)
+    assert pose_cases.max_err(post, ref) <= 1e-9
+    assert pose_cases.delta_is_own_rounding(post)
+    assert float(post.row[12]) == float(diverge)
+    assert torch.equal(post.pose_prev, state[0]) and torch.equal(post.first_pose, state[1])
+    for t in (post.pose, post.pose_prev, post.first_pose, post.model_deviation):
+        assert t.shape == (4, 4) and t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("case", pose_cases.CASES)
+def test_pose_chain_branch_cases_match_plain(dev, case):
+    """K2 then K3 on each branch case: every output (row and epilogue)
+    within 1e-9 of the plain version on the same inputs (K3's plain version
+    on the kernel's row), the i32 outputs equal, the f32 map delta the
+    kernel's own f64 delta rounded, a repeated launch bit-equal."""
+    args, kw, corr = pose_cases.case(case, dev)
+    before = dict(_common.LAUNCHES)
+    pre = _same_twice(pose_chain.pose_pre, *args, **kw)
+    assert pose_cases.max_err(pre, pose_chain.pose_pre_ref(*args, **kw)) <= 1e-9
+    post_args = pose_cases.post_args(args, corr, pre.row)
+    mmd = pose_cases.MAX_MODEL_DEVIATION
+    post = _same_twice(pose_chain.pose_post, *post_args, max_model_deviation=mmd)
+    assert pose_cases.max_err(post, pose_chain.pose_post_ref(
+        *post_args, max_model_deviation=mmd)) <= 1e-9
+    assert pose_cases.delta_is_own_rounding(post)
+    assert _common.LAUNCHES["pose_pre"] == before["pose_pre"] + 2
+    assert _common.LAUNCHES["pose_post"] == before["pose_post"] + 2
+
+
+def test_pose_chain_unaligned_inputs_match_plain(dev):
+    """Every matrix and row input of K2 and K3 8 bytes off the 16-byte
+    alignment (the kernels' 8-byte loads) against the plain version, and
+    bit-equal to the launch on the same inputs aligned (16-byte loads)."""
+    args, kw, corr = pose_cases.case("np5", "cpu")
+    shifted = tuple(_on_card(a.numpy(), dev, 1) if a.dim() == 2 else a.to(dev) for a in args)
+    aligned = tuple(a.to(dev) for a in args)
+    assert all(a.data_ptr() % 16 == 8 for a in shifted if a.dim() == 2)
+    pre = pose_chain.pose_pre(*shifted, **kw)
+    assert pose_cases.max_err(pre, pose_chain.pose_pre_ref(*shifted, **kw)) <= 1e-9
+    assert all(torch.equal(a, b) for a, b in zip(pre, pose_chain.pose_pre(*aligned, **kw)))
+    row = _on_card(pre.row.cpu().numpy(), dev, 1)
+    post_args = pose_cases.post_args(shifted, _on_card(corr.numpy(), dev, 1), row)
+    mmd = pose_cases.MAX_MODEL_DEVIATION
+    post = pose_chain.pose_post(*post_args, max_model_deviation=mmd)
+    assert pose_cases.max_err(post, pose_chain.pose_post_ref(
+        *post_args, max_model_deviation=mmd)) <= 1e-9
+    again = pose_chain.pose_post(*pose_cases.post_args(aligned, corr.to(dev), pre.row),
+                                 max_model_deviation=mmd)
+    assert all(torch.equal(a, b) for a, b in zip(post, again))
 
 
 def _twice(fn, *args):
@@ -256,8 +317,10 @@ def test_batched_drive_card_matches_cpu(dev):
 
 
 def test_kernel_rejects_wrong_dtype_on_card(dev):
+    eye = torch.eye(4, dtype=F64, device=dev)
     with pytest.raises(TypeError):
         pose_chain.pose_post(torch.zeros(12, device=dev), torch.zeros(12, dtype=F64, device=dev),
+                             eye, eye, torch.zeros((), dtype=torch.int32, device=dev),
                              max_model_deviation=1.0)
 
 

@@ -1,11 +1,11 @@
 """Guards for the port's no-fallback rule: without a card `chip_smoke.py`
 fails and prints no result; a kernel wrapper given non-CPU tensors builds /
 loads its kernel or raises — it never runs the plain version; the lean
-gather wrappers check dtype, shape, contiguity and devices before they
-load the library and launch only on one CUDA device; the build raises with
-nvcc's stderr. A whole batched step on non-CPU tensors runs up
-to kernel K5 and raises there (and, on `meta` tensors, shows that nothing
-before it reads the device from the host)."""
+wrappers (the gathers, K2 / K3) check dtype, shape, contiguity and devices
+before they load the library and launch only on one CUDA device; the
+build raises with nvcc's stderr. A whole batched step on non-CPU tensors
+runs up to kernel K5 and raises there (and, on `meta` tensors, shows that
+nothing before it reads the device from the host)."""
 
 import ctypes
 import os
@@ -88,7 +88,8 @@ def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
                 _meta((4, 4), f64), _meta((), i32), _meta((), i32), min_motion_th=0.1,
                 initial_threshold=2.0, max_range=30.0, deskew_on=True)
         elif kernel == "pose_post":
-            pose_chain.pose_post(_meta((15,), f64), _meta((32,), f64), max_model_deviation=1.0)
+            pose_chain.pose_post(_meta((15,), f64), _meta((32,), f64), _meta((4, 4), f64),
+                                 _meta((4, 4), f64), _meta((), i32), max_model_deviation=1.0)
         elif kernel == "fused_gn_carry":
             icp_gn.fused_gn_carry(_meta((3, 256), f32), _meta((256,), f32),
                                   _meta((3, 80, 256), f32), _meta((8,), f64),
@@ -192,6 +193,79 @@ def test_lean_gather_wrappers_launch_only_on_cuda(monkeypatch, kernel):
     assert entered == [] and _common.LAUNCHES == before
     assert set(probes._fns) == {f"lis_{kernel}"}  # bound once, with its argtypes
     assert probes._fns[f"lis_{kernel}"].restype is ctypes.c_int
+
+
+def _pose_args(kernel, fault):
+    """Meta arguments of K2 (`pose_pre`) or K3 (`pose_post`) with one fault
+    (or none), and the keyword options."""
+    f64, i32 = torch.float64, torch.int32
+    if kernel == "pose_pre":
+        args = [_meta((4, 4), f64), _meta((4, 4), f64), _meta((4, 4), f64), _meta((), f64),
+                _meta((4, 4), f64), _meta((), i32), _meta((), i32)]
+        kw = dict(min_motion_th=0.1, initial_threshold=2.0, max_range=30.0, deskew_on=True)
+        pose, count = 0, 5
+    else:
+        args = [_meta((48,), f64), _meta((32,), f64), _meta((4, 4), f64), _meta((4, 4), f64),
+                _meta((), i32)]
+        kw = dict(max_model_deviation=1.0)
+        pose, count = 2, 4
+    if fault == "pose_dtype":
+        args[pose] = _meta((4, 4), torch.float32)
+    elif fault == "count_dtype":
+        args[count] = _meta((), torch.int64)
+    elif fault == "shape":
+        args[pose] = _meta((3, 4), f64)
+    elif fault == "short_row":
+        args[0] = _meta((11,), f64) if kernel == "pose_post" else _meta((16,), f64)
+    elif fault == "non_contiguous":
+        args[pose] = _meta((4, 4), f64).t()
+    elif fault == "mixed_devices":
+        args[pose] = torch.zeros((4, 4), dtype=f64)
+    return args, kw
+
+
+@pytest.mark.parametrize("kernel", ["pose_pre", "pose_post"])
+@pytest.mark.parametrize("fault,error", [("pose_dtype", TypeError), ("count_dtype", TypeError),
+                                         ("shape", ValueError), ("short_row", ValueError),
+                                         ("non_contiguous", ValueError),
+                                         ("mixed_devices", ValueError)])
+def test_lean_pose_wrappers_check_before_loading(no_library, kernel, fault, error):
+    # K2's and K3's direct checks run before the library is loaded: each
+    # fault raises its own error, not the (patched) build failure
+    args, kw = _pose_args(kernel, fault)
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(error, match="mixed" if fault == "mixed_devices" else None):
+        getattr(pose_chain, kernel)(*args, **kw)
+    assert _common.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["pose_pre", "pose_post"])
+def test_lean_pose_wrappers_launch_only_on_cuda(monkeypatch, kernel):
+    # with a library that loads, non-CPU tensors off the card (meta) stop at
+    # the device check: no launch, no stream read, no plain version
+    entered = []
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                entered.append(name)
+                return 0
+            return entry
+
+    monkeypatch.setattr(_build, "load", Library)
+    monkeypatch.setattr(pose_chain, "_fns", {})
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for non-CPU tensors")
+
+    monkeypatch.setattr(pose_chain, f"{kernel}_ref", forbidden)
+    args, kw = _pose_args(kernel, None)
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        getattr(pose_chain, kernel)(*args, **kw)
+    assert entered == [] and _common.LAUNCHES == before
+    assert set(pose_chain._fns) == {f"lis_{kernel}"}  # bound once, with its argtypes
+    assert pose_chain._fns[f"lis_{kernel}"].restype is ctypes.c_int
 
 
 def test_batched_step_raises_at_the_kernel(no_library):

@@ -1,8 +1,10 @@
 """Pose bookkeeping kernels K2 / K3: the port's plain versions
 (`pose_pre_ref`, `pose_post_ref`) against the JAX Pallas kernels
-(`pose_pre`, `pose_post`, interpret mode on the CPU) on seeded f64 states.
-JAX is fed the float-float (hi, lo) split of the f64 state and its outputs
-are recombined.
+(`pose_pre`, `pose_post`, interpret mode on the CPU) on seeded f64 states,
+and the next state the fast step builds from their outputs
+(`kiss_icp.fast_state`) against the JAX step's bookkeeping and, bit for
+bit, against the tensor ops it replaces. JAX is fed the float-float
+(hi, lo) split of the f64 state and its outputs are recombined.
 
 Tolerances: rotation entries 2e-6 and translations 1e-6 m + 1e-7 |t| (the
 JAX kernels carry f32 rotations and float-float translations); flags and
@@ -20,10 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+from lidar_imu_slam_tpu.models import kiss_icp as jkiss
 from lidar_imu_slam_tpu.ops import lie as jlie
 from lidar_imu_slam_tpu.ops.pallas import pose_chain as jpc
+from lidar_imu_slam_tpu_torch.models import kiss_icp as tkiss
+from lidar_imu_slam_tpu_torch.ops import lie as tlie
+from lidar_imu_slam_tpu_torch.ops.icp import ThresholdState
 from lidar_imu_slam_tpu_torch.ops.kernels import _common
 from lidar_imu_slam_tpu_torch.ops.kernels import pose_chain as tpc
+from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pcases
 
 torch.set_num_threads(1)
 
@@ -76,7 +83,7 @@ def test_pose_pre_matches_jax(num_poses, far, deskew_on):
         hi, lo, jnp.asarray(s["md"].reshape(16), jnp.float32),
         jnp.asarray([num_poses, s["thr_n"]], jnp.int32), deskew_on=deskew_on, **KW),
         np.float64)
-    rt = tpc.pose_pre_ref(*_port_args(s), deskew_on=deskew_on, **KW).numpy()
+    rt = tpc.pose_pre_ref(*_port_args(s), deskew_on=deskew_on, **KW).row.numpy()
     assert rt.shape == (tpc.PRE_WIDTH,)
     np.testing.assert_allclose(rt[0:9], rj[0:9], atol=2e-6)
     t_j = rj[9:12] + rj[12:15]
@@ -109,7 +116,9 @@ def test_pose_post_matches_jax(seed, diverge):
     rj = np.asarray(jpc.pose_post(a, max_model_deviation=10.0), np.float64)
     ct = torch.from_numpy(np.concatenate([corr[:3, :3].reshape(9), corr[:3, 3]]))
     gt = torch.from_numpy(np.concatenate([guess[:3, :3].reshape(9), guess[:3, 3]]))
-    rt = tpc.pose_post_ref(ct, gt, max_model_deviation=10.0).numpy()
+    eye = torch.eye(4, dtype=torch.float64)
+    rt = tpc.pose_post_ref(ct, gt, eye, eye, torch.tensor(5, dtype=torch.int32),
+                           max_model_deviation=10.0).row.numpy()
     assert rt.shape == (tpc.POST_WIDTH,)
     assert rt[12] == rj[15] == float(diverge)
     np.testing.assert_allclose(rt[0:9], rj[0:9], atol=2e-6)
@@ -130,13 +139,15 @@ def test_pose_post_matches_jax(seed, diverge):
 
 def test_wrappers_take_plain_version_on_cpu():
     s = _state(3, 5)
+    args = _port_args(s)
     before = dict(_common.LAUNCHES)
-    row = tpc.pose_pre(*_port_args(s), deskew_on=True, **KW)
-    np.testing.assert_array_equal(row.numpy(), tpc.pose_pre_ref(
-        *_port_args(s), deskew_on=True, **KW).numpy())
-    post = tpc.pose_post(row.clone(), row, max_model_deviation=10.0)
-    np.testing.assert_array_equal(post.numpy(), tpc.pose_post_ref(
-        row.clone(), row, max_model_deviation=10.0).numpy())
+    pre = tpc.pose_pre(*args, deskew_on=True, **KW)
+    for a, b in zip(pre, tpc.pose_pre_ref(*args, deskew_on=True, **KW)):
+        assert torch.equal(a, b)
+    post_args = (pre.row.clone(), pre.row, args[0], args[2], args[5])
+    post = tpc.pose_post(*post_args, max_model_deviation=10.0)
+    for a, b in zip(post, tpc.pose_post_ref(*post_args, max_model_deviation=10.0)):
+        assert torch.equal(a, b)
     assert _common.LAUNCHES == before  # no kernel launched on the CPU
 
 
@@ -145,6 +156,98 @@ def test_wrappers_check_arguments():
     args[0] = args[0].float()
     with pytest.raises(TypeError):
         tpc.pose_pre(*args, deskew_on=True, **KW)
+    eye = torch.eye(4, dtype=torch.float64)
     with pytest.raises(ValueError):
         tpc.pose_post(torch.zeros(5, dtype=torch.float64), torch.zeros(32, dtype=torch.float64),
-                      max_model_deviation=1.0)
+                      eye, eye, torch.tensor(1, dtype=torch.int32), max_model_deviation=1.0)
+
+
+def _jax_state(s):
+    """The JAX fast step's inputs of state `s`: pose_pre's float-float split
+    vector, its f32 model deviation and its counters."""
+    vec = np.concatenate([s["pose"].reshape(16), s["pose_prev"].reshape(16),
+                          s["first_pose"].reshape(16), [s["sse"]]])
+    hi, lo = _split(vec)
+    return hi, lo, jnp.asarray(s["md"].reshape(16), jnp.float32), jnp.asarray(
+        [s["num_poses"], s["thr_n"]], jnp.int32)
+
+
+@pytest.mark.parametrize("diverge", [False, True])
+@pytest.mark.parametrize("num_poses", [0, 1, 5])
+def test_fast_state_matches_jax_bookkeeping(num_poses, diverge):
+    """K2 -> K3 -> the next KissState: the port's plain versions and
+    `kiss_icp.fast_state` against the JAX fast step's bookkeeping
+    (`fast_pose_from_prow`, `fast_threshold_state` and the KissState of
+    JAX kiss_icp.py:409-420), with the pose_pre row as the guess and a
+    seeded correction (30 m past the 10 m gate when diverging)."""
+    s = _state(20 + num_poses, num_poses)
+    corr = _rand_pose(np.random.default_rng(30 + num_poses), 0.05, 0.0005)
+    if diverge:
+        corr[:3, 3] += 30.0
+    # JAX: the fused pre / post kernels and the step's recombination
+    hi, lo, md32, counters = _jax_state(s)
+    rj = jpc.pose_pre(hi, lo, md32, counters, deskew_on=True, **KW)
+    ch, cl = _split(corr[:3, 3])
+    prow_j = jpc.pose_post(jnp.concatenate([
+        jnp.asarray(corr[:3, :3].reshape(9), jnp.float32), ch, cl, rj[0:9], rj[9:12],
+        rj[12:15]]), max_model_deviation=10.0)
+    pose_j = np.asarray(jkiss.fast_pose_from_prow(prow_j))
+    thr_j = jkiss.fast_threshold_state(rj, prow_j)
+    first = num_poses == 0
+    prev_j = pose_j if first else s["pose"]
+    first_j = pose_j if first else s["first_pose"]
+    # the port: K2's plain version, K3's on its row, the shared helper
+    args = _port_args(s)
+    pre = tpc.pose_pre(*args, deskew_on=True, **KW)
+    post = tpc.pose_post(torch.from_numpy(np.concatenate([corr[:3, :3].reshape(9),
+                                                          corr[:3, 3]])),
+                         pre.row, args[0], args[2], args[5], max_model_deviation=10.0)
+    st = tkiss.fast_state(None, pre, post)
+    assert float(post.row[12]) == float(np.asarray(prow_j)[15]) == float(diverge)
+    for got, want in ((st.pose, pose_j), (st.pose_prev, prev_j), (st.first_pose, first_j)):
+        got = got.numpy()
+        np.testing.assert_allclose(got[:3, :3], want[:3, :3], atol=2e-6)
+        assert np.all(np.abs(got[:3, 3] - want[:3, 3]) <= _tol_t(want[:3, 3]))
+        np.testing.assert_array_equal(got[3], [0, 0, 0, 1])
+    assert int(st.num_poses) == num_poses + 1
+    assert int(st.threshold.num_samples) == int(thr_j.num_samples)
+    np.testing.assert_allclose(float(st.threshold.model_error_sq),
+                               float(thr_j.model_error_sq), rtol=3e-4)
+    md_t, md_j = st.threshold.model_deviation.numpy(), np.asarray(thr_j.model_deviation)
+    np.testing.assert_allclose(md_t[:3, :3], md_j[:3, :3], atol=2e-6)
+    assert np.all(np.abs(md_t[:3, 3] - md_j[:3, 3]) <= _tol_t(np.abs(prev_j[:3, 3]).max()))
+    np.testing.assert_array_equal(md_t[3], [0, 0, 0, 1])
+
+
+@pytest.mark.parametrize("case", pcases.CASES)
+def test_fast_state_equals_the_op_sequence(case):
+    """The shared helper's state (`kiss_icp.fast_state` on the plain K2 /
+    K3 outputs) equals, bit for bit, the state the fast step built with
+    tensor ops after the kernels before they wrote it: `make_transform` of
+    the row, the accumulators cloned and cast from the pose_pre row, the
+    first-scan selects and the count; and the f32 map delta equals the
+    row's delta cast as `rotate_points` cast it."""
+    a, kw, corr = pcases.case(case)
+    pre = tpc.pose_pre(*a, **kw)
+    post = tpc.pose_post(*pcases.post_args(a, corr, pre.row),
+                         max_model_deviation=pcases.MAX_MODEL_DEVIATION)
+    st = tkiss.fast_state("map", pre, post)
+    row, prow, num_poses = pre.row, post.row, a[5]
+    new_pose = tlie.make_transform(prow[0:9].reshape(3, 3), prow[9:12])
+    first = num_poses == 0
+    want = tkiss.KissState(
+        map="map", pose=new_pose,
+        pose_prev=torch.where(first, new_pose, a[0]),
+        first_pose=torch.where(first, new_pose, a[2]),
+        num_poses=num_poses + 1,
+        threshold=ThresholdState(row[14].clone(), row[15].to(torch.int32),
+                                 prow[25:41].reshape(4, 4).clone()))
+    assert st.map == "map"
+    for name in ("pose", "pose_prev", "first_pose", "num_poses"):
+        got, exp = getattr(st, name), getattr(want, name)
+        assert got.dtype == exp.dtype and got.shape == exp.shape and torch.equal(got, exp), name
+    for got, exp in zip(st.threshold, want.threshold):
+        assert got.dtype == exp.dtype and got.shape == exp.shape and torch.equal(got, exp)
+    assert torch.equal(post.delta_R, prow[13:22].reshape(3, 3).to(torch.float32))
+    assert torch.equal(post.delta_t, prow[22:25].to(torch.float32))
+    assert pcases.delta_is_own_rounding(post)
