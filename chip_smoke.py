@@ -26,15 +26,21 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    a repeated launch bit-equal, K5 timed at cluster sizes 4, 8 and 16 (8
    streams) and 1, 2 and 4 (256 streams);
 5. K6 `nn_bruteforce` at the classic path's shape (4096 queries x a
-   1,310,720-entry pool, ~30% +inf, 256 exact ties): indices and d^2
-   equal to the plain version's bit for bit, timed beside the plain
-   version and the `torch.cdist` + min yardstick;
+   1,310,720-entry pool, ~30% +inf, 256 exact ties) and on every
+   adversarial case of tools/nn_cases.py at that shape: indices and d^2
+   equal to the plain version's bit for bit, a repeated launch bit-equal,
+   timed (per call, device, host) beside the plain version and the
+   `torch.cdist` + min yardstick, and at slice lengths 4096, 8192, 16384,
+   with the SM clock and power draw sampled while it runs;
 5b. probes: the tools/ probes P1-P4 through the port's probe entry point
    (`python -m lidar_imu_slam_tpu_torch.tools.probes all`) at the probes'
    own shapes — that run's counts are the probe kernels' launches. Its
    rows hold `take_rows` (P1, P4 f32 W = 128 and 512, P4 i32 broadcast)
    and `take_lanes` (P2) bit-equal to their plain versions and `gn_proto`
-   (P3, 4096 x 80 x 8 iterations) within GN_TOL with an equal conv, each
+   (P3, 4096 x 80 x 8 iterations, one cluster of 16 CTAs: its ptxas
+   registers and spills, a repeated launch bit-equal, device times at
+   cluster sizes 4, 8 and 16 and at 0, 1 and 8 iterations) within GN_TOL
+   with an equal conv, each
    timed beside its plain version and (gathers) the PyTorch library call
    that computes the same function: per call (CUDA events over back-to-back
    calls), on the device (calls queued behind a stream sleep) and on the
@@ -71,7 +77,9 @@ Needs one CUDA card, nvcc, and this checkout (it drives
 9. K6 on its path: the classic map's pool queried with the last scan's
    keypoints, against the plain version and the hash fetch
    `voxel_map.nearest_neighbors` (never farther; equal wherever the hash
-   searched K6's winning voxel);
+   searched K6's winning voxel); then adversarial queries on the same
+   pool (on live entries, at midpoints, 1e4 m away, not finite) against
+   the plain version;
 10. small batched drive: 3 streams x 5 small scans under `batch_config` on
    the card and on the CPU, and 5 scans of one stream through
    `register_frame` under `batch_config` (kernel K4, counted) — poses must
@@ -96,8 +104,8 @@ when there is no CUDA card or any phase fails.
     python3 chip_smoke.py --measure ROOT
     python3 chip_smoke.py --turns PARENT
 
-`--measure` runs only K1's checks, K2's and K3's times and the fast and
-LIO slices, on the package of the checkout ROOT, and ends with one line
+`--measure` runs only K1's checks, K2's, K3's, K6's and gn_proto's times
+(per call, device, host) and the fast and LIO slices, on the package of the checkout ROOT, and ends with one line
 `MEASURE {json}`. `--turns` runs `--measure` on the checkout PARENT (a
 `git archive` of an earlier commit, say) and on this one in turns —
 parent, change, change, parent, each in a process of its own — and sets
@@ -1040,14 +1048,11 @@ def _k6_check(what, q, pool):
     return d2, idx, float((d2 - d2_p)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
-def nn_kernel_phase(dev):
-    """K6 against its plain version at the classic path's shape: 4096
-    queries x a 1,310,720-entry pool with ~30% +inf entries and exact
-    duplicate points (ties the first index must win), timed beside the
-    plain version and the cdist yardstick."""
+def _k6_inputs(dev):
+    """K6 at the classic path's shape: 4096 queries x a 1,310,720-entry pool
+    with ~30% +inf entries and 256 exact duplicate points (the first index
+    must win), the first 256 queries on them. Returns (q, pool, dup)."""
     import torch
-
-    from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as nnb
 
     rng = np.random.default_rng(3)
     lo, hi = np.array([-80.0, -80.0, -3.0]), np.array([80.0, 80.0, 12.0])
@@ -1060,22 +1065,89 @@ def nn_kernel_phase(dev):
     qs = rng.uniform(lo, hi, (K6_QUERIES, 3)).astype(np.float32)
     qs[:256] = tie  # exact hits: d2 = 0 at two indices
     pool = torch.from_numpy(np.ascontiguousarray(pts.T)).to(dev)
-    q = torch.from_numpy(qs).to(dev)
+    return torch.from_numpy(qs).to(dev), pool, dup
+
+
+def _k6_times(q, pool) -> dict:
+    """K6's per-call (CUDA events), device (launches queued behind a stream
+    sleep) and host (enqueue clock) ms at one input, through the public
+    wrapper (so `--measure` times a parent checkout alike)."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as nnb
+    from lidar_imu_slam_tpu_torch.tools import probes as tp
+
+    fn = lambda: nnb.nn_bruteforce(q, pool)  # noqa: E731
+    return dict(ms=_cuda_ms(fn, 20), device_ms=_device_ms(fn, 20), host_ms=tp.host_ms(fn, 20))
+
+
+def _clocks_during(fn, seconds: float = 2.0) -> list[str]:
+    """The card's SM clock and power draw (nvidia-smi, every 200 ms) while
+    `fn` runs back to back; the first samples, taken before the load
+    settles, are dropped."""
+    import torch
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader", "-lms", "200"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    return [ln.strip() for ln in out.splitlines()[2:] if ln.strip()]
+
+
+def nn_kernel_phase(dev):
+    """K6 against its plain version at the classic path's shape (random
+    pool, 256 exact ties), then on every adversarial case of
+    tools/nn_cases.py at the same shape, each bit-equal; timed beside the
+    plain version and the cdist yardstick, on device and host, and at other
+    slice lengths."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as nnb
+    from lidar_imu_slam_tpu_torch.tools import nn_cases
+
+    import torch
+
+    print("K6 nn_seed_kernel / nn_slice_kernel, ptxas: " + "; ".join(
+        _ptxas_lines("nn_seed_kernel") + _ptxas_lines("nn_slice_kernel")))
+    q, pool, dup = _k6_inputs(dev)
     d2, idx, err = _k6_check("K6 nn_bruteforce", q, pool)
     _require(bool((idx[:256].cpu().numpy() == dup).all()),
              "K6: an exact tie did not resolve to the first index")
-    ms = _cuda_ms(lambda: nnb.nn_bruteforce(q, pool), 50)
+    _same_twice("K6", lambda: nnb.nn_bruteforce(q, pool))
+    t = _k6_times(q, pool)
+    ms = t["ms"]
     plain_ms = _cuda_ms(lambda: nnb.nn_bruteforce_plain(q, pool), 3)
     rows = pool.T.contiguous()
     library_ms = _cuda_ms(lambda: _cdist_min(q, rows, nnb.PLAIN_CHUNK), 1)
     n, m = q.shape[0], pool.shape[1]
     bound, by = _bound_ms(_nbytes(q, pool, d2, idx), 8.0 * n * m)
-    print(f"K6 {ms:.4f} ms/launch  plain {plain_ms:.4f} ms/call  cdist+min {library_ms:.4f} ms  "
+    print(f"K6 {ms:.4f} ms/launch (device {t['device_ms']:.4f}, host {t['host_ms']:.4f})  "
+          f"plain {plain_ms:.4f} ms/call  cdist+min {library_ms:.4f} ms  "
           f"bound {bound:.4f} ms ({by}); 256 exact ties resolved to the first index")
+    print("K6 running back to back: SM clock, power " +
+          "; ".join(_clocks_during(lambda: nnb.nn_bruteforce(q, pool))))
+    sweep = {s: _cuda_ms(lambda s=s: nnb._launch(q, pool, s), 20) for s in (4096, 8192, 16384)}
+    print("K6 ms/launch by slice length " + "  ".join(f"{s}: {v:.4f}" for s, v in sweep.items())
+          + f"  (wrapper: {nnb.SLICE})")
+    case_ms = {}
+    for case in nn_cases.CASES:
+        qs, pts = nn_cases.make(case, K6_QUERIES, K6_POOL, seed=3)
+        cq, cp = torch.from_numpy(qs).to(dev), torch.from_numpy(pts).to(dev)
+        _, _, case_err = _k6_check(f"K6 adversarial case {case}", cq, cp)
+        err = max(err, case_err)
+        case_ms[case] = _cuda_ms(lambda: nnb.nn_bruteforce(cq, cp), 3)
+        del cq, cp
+    print("K6 ms/launch by adversarial case " +
+          "  ".join(f"{c}: {v:.4f}" for c, v in case_ms.items()))
     return dict(name="nn_bruteforce", route="cuda",
                 source="lidar_imu_slam_tpu_torch/csrc/nn_bruteforce.cu",
                 replaces=f"{REFERENCE_PKG}/ops/pallas/nn_bruteforce.py:66",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, device_ms=t["device_ms"], host_ms=t["host_ms"],
+                slice_sweep_ms=sweep, case_ms=case_ms)
 
 
 def _small_cfg(cfgmod, gn_backend):
@@ -1266,6 +1338,20 @@ def nn_on_path_phase(dev, cfg64, state, out):
           f"K6 strictly closer for {closer:.4%} of the queries")
     _require(worse == 0, "K6 found a farther point than the hash fetch")
     _require(unequal == 0, "K6 and the hash fetch differ where the hash searched K6's winner")
+    # adversarial queries on the same pool: exactly on live entries, at the
+    # midpoint of two, 1e4 m away, and not finite
+    rng = np.random.default_rng(9)
+    live_i = torch.nonzero(torch.isfinite(pool[0])).flatten()
+    pick = live_i[torch.from_numpy(rng.choice(live_i.numel(), 1024)).to(dev)]
+    on = pool[:, pick].T
+    mid = 0.5 * (on + pool[:, torch.roll(pick, 1)].T)
+    far = on + torch.tensor([1e4, -1e4, 0.0], device=dev)
+    bad = on.clone()
+    bad[0::3, 0], bad[1::3, 1], bad[2::3, 2] = float("nan"), float("inf"), -float("inf")
+    adv = torch.cat([on, mid, far, bad]).contiguous()
+    d2_adv, _, _ = _k6_check("K6 on the classic map, adversarial queries", adv, pool)
+    _require(bool((d2_adv[:1024] == 0).all()), "K6: a query on a pool entry is not at d2 0")
+    _require(bool(torch.isinf(d2_adv[3072:]).all()), "K6: a non-finite query found a neighbour")
     return launches
 
 
@@ -1313,6 +1399,36 @@ def probe_phase(dev):
             k = results[name]
             k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
             k.update({f"{key}[{r['probe']} {r['name']}]": v for key, v in case.items()})
+
+    # gn_proto's cluster: its shape, registers, a repeated launch, other sizes
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+    from lidar_imu_slam_tpu_torch.ops.kernels import probes as kp
+
+    x = tp.gn_inputs(dev)
+    args = (x["q"], x["qmask"], x["cand"], x["scal"], tp.N_INNER)
+    c, per = icp_gn.launch_shape(tp.NQ, tp.NC)
+    print(f"gn_proto: cluster of C = {c} CTAs x {per} queries; {kp.max_active_clusters(c)} "
+          f"clusters of {c} resident at most")
+    _require(c > 1, f"gn_proto: {c} CTA at {tp.NQ} x {tp.NC}")
+    print("gn_proto_kernel, ptxas: " + "; ".join(_ptxas_lines("gn_proto_kernel")))
+    _same_twice("gn_proto", lambda: kp.gn_proto(*args))
+    sweep = {}
+    for size in (4, 8, 16):
+        shape = icp_gn.cluster_shape(tp.NQ, size)
+        out = kp._launch(*args, shape)
+        ref = kp.gn_proto_plain(*args)
+        _require(float((out[:12] - ref[:12]).abs().max()) <= tp.GN_TOL and out[12] == ref[12],
+                 f"gn_proto at C = {shape[0]} disagrees with its plain version")
+        sweep[shape[0]] = _device_ms(lambda shape=shape: kp._launch(*args, shape), 50)
+    print("gn_proto device ms/launch by cluster size " +
+          "  ".join(f"C={k}: {v:.4f}" for k, v in sweep.items()) + f"  (rule: C={c})")
+    # the launch's fixed cost (n_inner 0: launch, candidate staging, cluster
+    # start) against the cost of an iteration
+    by_iters = {ni: _device_ms(lambda ni=ni: kp.gn_proto(*args[:4], ni), 50) for ni in (0, 1, 8)}
+    print("gn_proto device ms/launch by n_inner " +
+          "  ".join(f"{ni}: {v:.4f}" for ni, v in by_iters.items()))
+    results["gn_proto"].update(cluster=c, cluster_sweep_device_ms=sweep,
+                               iterations_device_ms=by_iters)
     return list(results.values()), launches
 
 
@@ -1481,21 +1597,38 @@ def _build_kernels() -> None:
                 print("  ptxas:", line.strip())
 
 
+def _k6_proto_times(dev) -> dict:
+    """K6 (4096 x 1,310,720) and gn_proto (4096 x 80 x 8) per call, device
+    and host ms, through their public wrappers."""
+    from lidar_imu_slam_tpu_torch.ops.kernels import probes as kp
+    from lidar_imu_slam_tpu_torch.tools import probes as tp
+
+    q, pool, _ = _k6_inputs(dev)
+    times = {"nn_bruteforce": _k6_times(q, pool)}
+    del q, pool
+    x = tp.gn_inputs(dev)
+    fn = lambda: kp.gn_proto(x["q"], x["qmask"], x["cand"], x["scal"], tp.N_INNER)  # noqa: E731
+    times["gn_proto"] = dict(ms=_cuda_ms(fn, 100), device_ms=_device_ms(fn, 100),
+                             host_ms=tp.host_ms(fn))
+    return times
+
+
 def measure(dev) -> dict:
     """`--measure`: K2's and K3's times (with K1's checks before them, as
-    in the smoke run), then the fast and LIO slices; returns their
-    numbers."""
+    in the smoke run), K6's and gn_proto's times, then the fast and LIO
+    slices; returns their numbers."""
     from lidar_imu_slam_tpu_torch import config as cfgmod
 
     cfg = bench_cfg(cfgmod, POINTS_PER_SCAN)
     kernels = {k["name"]: {key: v for key, v in k.items() if key.endswith("ms")}
                for k in kernel_phase(dev, cfg) if k["name"] in ("pose_pre", "pose_post")}
+    kernels.update(_k6_proto_times(dev))
     raws, gt = render_hdl_drive(dev)
     _, fast = slice_phase(dev, cfg, raws, gt)
     return dict(kernels=kernels, slice=fast, lio=lio_slice_phase(dev, cfg, raws, gt))
 
 
-MEASURE_KEYS = {  # what --turns sets side by side
+MEASURE_KEYS = {  # what --turns sets side by side (K6 and gn_proto: ms, device, host)
     "kernels": ("ms", "device_ms", "host_ms", "floor_ms", "floor_host_ms", "pose_step_ms",
                 "pose_step_device_ms", "pose_step_host_ms"),
     "slice": ("scans_per_s", "p50_ms", "ops_per_scan", "compute_ops_per_scan",

@@ -33,20 +33,35 @@
 //     L1) and writes one float4.
 // The launcher takes the 16-byte variant when the widths are multiples of 4
 // and the pointers 16-byte aligned, else the scalar variant of the same
-// kernel (one element per load). gn_proto reads its
-// 3.9 MB of candidates once per iteration; its design is the simple one
-// block: ONE block of 1024 threads strides over the queries, each thread keeps
-// 16 f32 partial sums (and the correspondence count), a warp-shuffle +
-// shared-memory tree reduces them, and thread 0 solves, exponentiates and
-// composes in f32 and hands the carried pose to the block through shared
-// memory. One block reads through one SM: far above the byte bound (K1, K4
-// and K5 in icp_gn.cu spread a stream over a thread-block cluster instead).
+// kernel (one element per load).
+//
+// gn_proto reads its 3.9 MB of candidates (4096 queries x 80 slots) once
+// per iteration, from L2 after the first: the byte bound (every input once)
+// is 1.2 us, but one SM draws only ~100 GB/s from L2, so a single block
+// spends ~40 us an iteration on those reads. The design spreads the queries
+// over a thread-block cluster, as K1 / K4 / K5 do (icp_gn.cu): C CTAs of
+// kGnThreads = 256 (C and the queries per CTA from the wrapper, K1's rule:
+// min(16, ceil(N * NC / (256 * 80))), 16 at the probe's shape; cluster
+// dims (C, 1, 1), a non-portable size above 8). CTA rank r takes queries
+// [r * per_cta, (r + 1) * per_cta). Per iteration each CTA reduces its 17
+// f32 sums (warp shuffles, then one warp over the 8 per-warp partials) and
+// writes them into rank 0's shared memory through distributed shared
+// memory. After a cluster barrier, rank 0 adds the C partials in rank
+// order (repeated launches give bit-equal outputs), solves, exponentiates
+// and composes on one thread (gn_proto_update) and writes the 13-float
+// carry into every rank; a second barrier releases the cluster. All
+// n_inner iterations run, as in the JAX kernel: a converged carry freezes
+// the pose but does not leave the loop. A CTA's candidates (245 KB at 256
+// queries x 80 slots) do not fit in shared memory, but its first 64 slots
+// do (196,608 bytes of dynamic shared memory): the CTA copies them in
+// once, with 16-byte loads, before the first iteration, so every
+// iteration reads only the other 16 slots from L2.
 //
 // Rounding: every f32 step of gn_proto's per-query work and of the solve is
 // rounded as written (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn /
 // __fsqrt_rn: no FMA contraction), in the JAX kernel's operation order, so
 // the kernel differs from the plain PyTorch version only by the order of
-// the 17 block sums. Indices of the gathers are clamped into range (the
+// the 17 cluster sums. Indices of the gathers are clamped into range (the
 // probes' indices are in range; the plain versions clamp the same way).
 //
 // Layouts: take_rows table (C, W), idx (N, W) or (N, 1) (idx_cols = W or
@@ -54,11 +69,14 @@
 // gn_proto q (3, NQ) f32, qm (NQ,) bool as bytes, cand (3, NC, NQ) f32,
 // scal (2,) f32 = [kth, maxd2], out (13,) f32 = [R row-major 9, t 3, conv].
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -67,8 +85,16 @@ constexpr int kRowsPerWarp = 4;    // rows a warp has in flight
 constexpr int kRowsPerBlock = kRowThreads / 32 * kRowsPerWarp;
 constexpr int kLaneThreads = 128;  // take_lanes
 constexpr long long kWaveBlocks = 132LL * 16;  // 128-thread blocks: 2048 threads on each of 132 SMs
-constexpr int kGnThreads = 1024;
+constexpr int kGnThreads = 256;
+constexpr int kGnWarps = kGnThreads / 32;
+constexpr int kGnMaxCluster = 16;  // MAX_CLUSTER in ops/kernels/icp_gn.py
 constexpr int kSums = 17;  // 16 weighted sums + the correspondence count
+constexpr int kCarry = 13;  // R 9 | t 3 | conv
+// dynamic shared memory of a gn_proto CTA: 64 candidate slots of 256
+// queries (the rule's CTA), 196,608 bytes
+constexpr int kGnResidentFloats = 3 * 64 * kGnThreads;
+constexpr size_t kGnResidentBytes = kGnResidentFloats * sizeof(float);
+constexpr int kGnAhead = 16;  // global candidate slots loaded ahead of the shared-memory pass
 
 template <typename T, int VEC> struct VecOf { using type = T; };
 template <> struct VecOf<float, 4> { using type = float4; };
@@ -267,17 +293,56 @@ __device__ void gn_proto_update(const float* s, float* c) {
   c[12] = (!ok || __fsqrt_rn(step2) < (float)5e-4) ? 1.f : conv;
 }
 
+// Per-CTA workspace of the GN loop.
+struct ProtoShared {
+  float warp_part[kGnWarps][kSums];
+  float part[kGnMaxCluster][kSums];  // rank 0: the cluster's CTA sums, by rank
+  float tot[kSums];
+  float carry[kCarry];
+};
+
+// One cluster (see the header comment): n_inner f32 GN iterations, CTA rank
+// r on its slice of the queries; rank 0 solves and writes the carry.
 __global__ void __launch_bounds__(kGnThreads)
 gn_proto_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
                 const float* __restrict__ cand, const float* __restrict__ scal, int nq, int nc,
-                int n_inner, float* __restrict__ out) {
-  __shared__ float red[kGnThreads / 32][kSums];
-  __shared__ float carry[13];
+                int n_inner, int per_cta, float* __restrict__ out) {
+  __shared__ ProtoShared sh;
+  extern __shared__ __align__(16) float resident[];  // (3, res, per_cta): the first res slots
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float kth = scal[0], maxd2 = scal[1];
   const size_t plane = (size_t)nc * nq;
-  if (tid < 13) carry[tid] = (tid == 0 || tid == 4 || tid == 8) ? 1.f : 0.f;
-  __syncthreads();
+  const int lo = rank * per_cta;
+  const int hi = min(nq, lo + per_cta);
+  const int res = min(nc, kGnResidentFloats / (3 * per_cta));
+  float* part0 = cluster.map_shared_rank(&sh.part[0][0], 0);
+  float* carry = sh.carry;
+  if (tid < kCarry) carry[tid] = (tid == 0 || tid == 4 || tid == 8) ? 1.f : 0.f;
+  // this CTA's first res slots into shared memory, (3, res, per_cta): rows
+  // of hi - lo contiguous floats, 16-byte loads when every row is aligned
+  const int cnt = hi - lo;
+  if ((nq & 3) == 0 && (reinterpret_cast<uintptr_t>(cand) & 15) == 0) {
+    const int vec = cnt >> 2;  // cnt % 4 == 0: lo is a multiple of 32, hi of 4
+#pragma unroll 8
+    for (int x = tid; x < 3 * res * vec; x += kGnThreads) {
+      const int row = x / vec, v = x - row * vec;  // row = plane * res + slot
+      const float* src = cand + (size_t)(row / res) * plane + (size_t)(row % res) * nq + lo;
+      reinterpret_cast<float4*>(resident + (size_t)row * per_cta)[v] =
+          __ldg(reinterpret_cast<const float4*>(src) + v);
+    }
+  } else {
+    for (int x = tid; x < 3 * res * cnt; x += kGnThreads) {
+      const int row = x / cnt, v = x - row * cnt;
+      resident[(size_t)row * per_cta + v] =
+          cand[(size_t)(row / res) * plane + (size_t)(row % res) * nq + lo + v];
+    }
+  }
+  // every CTA of the cluster runs, with its carry and candidates set, before
+  // any access to another CTA's shared memory
+  cluster.sync();
   for (int it = 0; it < n_inner; ++it) {
     const float r00 = carry[0], r01 = carry[1], r02 = carry[2];
     const float r10 = carry[3], r11 = carry[4], r12 = carry[5];
@@ -286,15 +351,13 @@ gn_proto_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
     float acc[kSums];
 #pragma unroll
     for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
-    for (int i = tid; i < nq; i += kGnThreads) {
+    for (int i = lo + tid; i < hi; i += kGnThreads) {
       const float qx = q[i], qy = q[nq + i], qz = q[2 * (size_t)nq + i];
       const float wx = add(add(add(mul(r00, qx), mul(r01, qy)), mul(r02, qz)), t0);
       const float wy = add(add(add(mul(r10, qx), mul(r11, qy)), mul(r12, qz)), t1);
       const float wz = add(add(add(mul(r20, qx), mul(r21, qy)), mul(r22, qz)), t2);
       float best = INFINITY, bx = 0.f, by = 0.f, bz = 0.f;
-      for (int j = 0; j < nc; ++j) {
-        const size_t o = (size_t)j * nq + i;
-        const float cx = cand[o], cy = cand[plane + o], cz = cand[2 * plane + o];
+      const auto visit = [&](float cx, float cy, float cz) {
         const float dx = sub(cx, wx), dy = sub(cy, wy), dz = sub(cz, wz);
         const float d2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
         if (d2 < best) {
@@ -303,6 +366,30 @@ gn_proto_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
           by = cy;
           bz = cz;
         }
+      };
+      // slots [0, res) from shared memory, the rest from global memory / L2,
+      // in slot order (the first minimum wins); the first kGnAhead global
+      // slots are loaded before the shared-memory pass, which hides them
+      float ax[kGnAhead], ay[kGnAhead], az[kGnAhead];
+#pragma unroll
+      for (int a = 0; a < kGnAhead; ++a) {
+        const size_t o = (size_t)min(res + a, nc - 1) * nq + i;
+        ax[a] = cand[o];
+        ay[a] = cand[plane + o];
+        az[a] = cand[2 * plane + o];
+      }
+      const float* mine = resident + (i - lo);
+#pragma unroll 8
+      for (int j = 0; j < res; ++j)
+        visit(mine[(size_t)j * per_cta], mine[(size_t)(res + j) * per_cta],
+              mine[(size_t)(2 * res + j) * per_cta]);
+#pragma unroll
+      for (int a = 0; a < kGnAhead; ++a)
+        if (res + a < nc) visit(ax[a], ay[a], az[a]);
+#pragma unroll 8
+      for (int j = res + kGnAhead; j < nc; ++j) {
+        const size_t o = (size_t)j * nq + i;
+        visit(cand[o], cand[plane + o], cand[2 * plane + o]);
       }
       if (qm[i] && best < maxd2) {  // non-correspondences add exact zeros
         const float rx = sub(wx, bx), ry = sub(wy, by), rz = sub(wz, bz);
@@ -329,28 +416,59 @@ gn_proto_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
         acc[16] = add(acc[16], 1.f);
       }
     }
+    // this CTA's sums, into rank 0's slot for this rank
 #pragma unroll
     for (int k = 0; k < kSums; ++k) {
       float v = acc[k];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v = add(v, __shfl_down_sync(0xffffffffu, v, off));
-      if (lane == 0) red[warp][k] = v;
+      if (lane == 0) sh.warp_part[warp][k] = v;
     }
     __syncthreads();
     if (warp == 0) {
 #pragma unroll
       for (int k = 0; k < kSums; ++k) {
-        float v = red[lane][k];  // kGnThreads / 32 == 32 partials, one per lane
+        float v = lane < kGnWarps ? sh.warp_part[lane][k] : 0.f;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) v = add(v, __shfl_down_sync(0xffffffffu, v, off));
-        if (lane == 0) red[0][k] = v;
+        if (lane == 0) part0[rank * kSums + k] = v;
       }
-      __syncwarp();
-      if (lane == 0) gn_proto_update(red[0], carry);
     }
-    __syncthreads();
+    cluster.sync();  // rank 0 holds the cluster's partials
+
+    if (rank == 0) {
+      if (tid < kSums) {
+        float v = sh.part[0][tid];
+        for (int r = 1; r < csize; ++r) v = add(v, sh.part[r][tid]);  // rank order
+        sh.tot[tid] = v;
+      }
+      __syncthreads();
+      if (tid == 0) gn_proto_update(sh.tot, carry);
+      __syncthreads();
+      for (int x = tid; x < (csize - 1) * kCarry; x += kGnThreads) {
+        const int r = 1 + x / kCarry, w = x % kCarry;
+        cluster.map_shared_rank(carry, r)[w] = carry[w];
+      }
+    }
+    cluster.sync();  // every rank holds the new carry
   }
-  if (tid < 13) out[tid] = carry[tid];
+  if (rank == 0 && tid < kCarry) out[tid] = carry[tid];
+}
+
+cudaLaunchConfig_t gn_proto_config(int clusters, cudaStream_t stream,
+                                   cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = clusters;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters);
+  cfg.blockDim = dim3(kGnThreads);
+  cfg.dynamicSmemBytes = kGnResidentBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -381,7 +499,7 @@ int launch_take_rows(const void* table, const void* idx, int c, int w, int n, in
 
 }  // namespace
 
-static_assert(kGnThreads / 32 == 32, "the second reduction stage takes one partial per lane");
+static_assert(kGnWarps <= 32, "the second reduction stage takes one partial per lane");
 
 // out[i, j] = table[clamp(idx[i, j or 0]), j]; elem_code 0 = f32, 1 = i32
 extern "C" int lis_take_rows(void* table, void* idx, int c, int w, int n, int idx_cols,
@@ -410,13 +528,50 @@ extern "C" int lis_take_lanes(void* table, void* idx, int r, int c, int n, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// n_inner fused GN iterations from the identity; out (13,) f32
+// Allow clusters above the portable 8 CTAs and the resident candidates'
+// dynamic shared memory, once per device (idempotent, so a race is benign).
+static cudaError_t gn_proto_attributes() {
+  static unsigned long long done = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && ((done >> dev) & 1ull))) return e;
+  e = cudaFuncSetAttribute(gn_proto_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gn_proto_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kGnResidentBytes));
+  if (e == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return e;
+}
+
+// Set gn_proto's attributes, then report how many clusters of `clusters`
+// CTAs of it can be resident at once (0: the shape cannot launch).
+extern "C" int lis_gn_proto_cluster_check(int clusters, int* max_active) {
+  cudaError_t e = gn_proto_attributes();
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = gn_proto_config(clusters, nullptr, &attr);
+    e = cudaOccupancyMaxActiveClusters(max_active, gn_proto_kernel, &cfg);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// n_inner fused GN iterations from the identity on one cluster of
+// `clusters` CTAs, per_cta queries each; out (13,) f32
 extern "C" int lis_gn_proto(void* q, void* qm, void* cand, void* scal, int nq, int nc,
-                            int n_inner, void* out, void* stream) {
-  if (nq <= 0 || nc <= 0 || n_inner < 0) return static_cast<int>(cudaErrorInvalidValue);
-  gn_proto_kernel<<<1, kGnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(qm),
+                            int n_inner, int clusters, int per_cta, void* out, void* stream) {
+  if (nq <= 0 || nc <= 0 || n_inner < 0 || clusters < 1 || clusters > kGnMaxCluster ||
+      (long long)clusters * per_cta < nq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = gn_proto_attributes();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = gn_proto_config(clusters, static_cast<cudaStream_t>(stream),
+                                                 &attr);
+  e = cudaLaunchKernelEx(
+      &cfg, gn_proto_kernel, static_cast<const float*>(q), static_cast<const uint8_t*>(qm),
       static_cast<const float*>(cand), static_cast<const float*>(scal), nq, nc, n_inner,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+      per_cta, static_cast<float*>(out));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }

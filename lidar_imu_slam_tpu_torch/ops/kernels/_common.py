@@ -7,9 +7,9 @@ library (building it on first use) and launches the kernel on CUDA tensors,
 or raises — there is no fallback.
 
 Launch path: `bind` binds a C entry of the library (its ctypes argtypes)
-once. The lean path of a wrapper whose kernel is as short as its launch
-(`lean_entry`) checks with a few direct attribute comparisons (`expect`
-of a fixed shape) and reads the current stream's raw handle without building a
+once. The lean path (`lean_entry`, every wrapper but K1 / K4 / K5's)
+checks with a few direct attribute comparisons (`expect` of a fixed
+shape) and reads the current stream's raw handle without building a
 `torch.cuda.Stream`, so the host spends on a call little more than the
 ctypes call and its outputs' `new_empty`.
 """

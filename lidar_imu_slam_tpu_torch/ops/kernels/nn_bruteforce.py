@@ -12,35 +12,55 @@ which searches only the query's voxel neighbourhood.
 (store_points=True) in the JAX package's shape, so the two pools compare
 element for element. The kernel takes any N and M; the TPU tile
 divisibility is not carried over.
+
+On the card (`csrc/nn_bruteforce.cu`) most pairs go through a cheaper
+filter, a = d^2 - |q|^2 up to rounding (three FMAs), and only groups whose
+filter minimum reaches a query's threshold are re-computed with the exact
+expression; `filter_threshold` mirrors that threshold, whose margin is
+proved in the kernel's header, for the tests. A NaN pool entry never wins
+in the kernel and hides nothing; the plain version (and the JAX kernel)
+skip the whole chunk (tile) that holds it, so pools with NaN entries lie
+outside the bit-equal contract (`pool_from_map` writes +inf).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import voxel_map
 from . import _build
-from ._common import LAUNCHES, expect, expect_cuda, on_cpu, stream_handle
+from ._common import LAUNCHES, expect, lean_entry, on_cpu
 
 F32 = torch.float32
 MT = 8192  # pool padding granule of the JAX package's pool (its pool tile)
-SLICE = 8192  # pool entries per thread block (a multiple of the kernel's 2048-point stage)
+SLICE = 8192  # pool entries per thread block (a multiple of the kernel's 1024-entry stage)
 PLAIN_CHUNK = 32768  # pool columns per step of the plain version
+# the kernel's filter (csrc/nn_bruteforce.cu: kRange, kU, kMarginC, kMarginAbs)
+FILTER_RANGE = 2.0 ** 60  # |coordinate| up to which a query or entry is filtered
+FILTER_U = 2.0 ** -24
+FILTER_C = 8.0
+FILTER_ABS = 2.0 ** -120
 
-_fn = None
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp, _vp]
+_fns: dict[str, object] = {}  # the bound C entry (`_common.bind`)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load().lis_nn_bruteforce
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp, vp]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def filter_threshold(t, qq, p2):
+    """The kernel's filter threshold, in f64 before its rounding up to f32:
+    a group whose smallest filter value a = d^2 - |q|^2 (+ rounding) is at
+    most this is re-checked exactly. t: an upper bound on the query's
+    exact minimum d^2; qq = |q|^2 (f64); p2: the largest computed |p|^2 of
+    the stage. Every entry with exact d^2 <= t has a <= the threshold
+    (the proof is in the kernel's header). numpy arrays or floats."""
+    t = np.asarray(t, np.float64)
+    qq = np.asarray(qq, np.float64)
+    p2 = np.asarray(p2, np.float64)
+    return (t - qq) + FILTER_C * FILTER_U * (t + qq + p2 + 2.0 * np.sqrt(qq) * np.sqrt(p2)) \
+        + FILTER_ABS
 
 
 def pool_from_map(m: voxel_map.VoxelMap, cfg) -> torch.Tensor:
@@ -84,25 +104,29 @@ def nn_bruteforce_plain(queries: torch.Tensor, pool: torch.Tensor,
     return best, best_idx.to(torch.int32)
 
 
+def _launch(queries: torch.Tensor, pool: torch.Tensor, slice_len: int = SLICE):
+    """K6 on CUDA tensors: seed, filter over slices of `slice_len` pool
+    entries (a multiple of 1024), merge; one launch count."""
+    fn, stream = lean_entry(_fns, "lis_nn_bruteforce", _ARGS, queries, pool)
+    n, m = queries.shape[0], pool.shape[1]
+    slices = max(-(-m // slice_len), 1)
+    part_d2 = queries.new_empty((slices, n))
+    part_idx = torch.empty((slices, n), dtype=torch.int32, device=queries.device)
+    d2 = queries.new_empty(n)
+    idx = torch.empty(n, dtype=torch.int32, device=queries.device)
+    status = fn(queries.data_ptr(), pool.data_ptr(), n, m, slice_len, part_d2.data_ptr(),
+                part_idx.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream)
+    _build.check(status, "nn_bruteforce")
+    LAUNCHES["nn_bruteforce"] += 1
+    return d2, idx
+
+
 def nn_bruteforce(queries: torch.Tensor, pool: torch.Tensor):
     """Each query's global nearest pool entry: queries (N, 3) f32, pool
     (3, M) f32 -> (d2 (N,) f32, idx (N,) i32). CPU tensors: the plain
-    version; CUDA tensors: kernel K6 (two passes, one launch count)."""
+    version; CUDA tensors: kernel K6 (one launch count)."""
     expect("queries", queries, F32, (None, 3))
     expect("pool", pool, F32, (3, None))
     if on_cpu(queries, pool):
         return nn_bruteforce_plain(queries, pool)
-    fn = _kernel()
-    expect_cuda(queries, pool)
-    n, m = queries.shape[0], pool.shape[1]
-    slices = max(-(-m // SLICE), 1)
-    dev = queries.device
-    part_d2 = torch.empty((slices, n), dtype=F32, device=dev)
-    part_idx = torch.empty((slices, n), dtype=torch.int32, device=dev)
-    d2 = torch.empty(n, dtype=F32, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    status = fn(queries.data_ptr(), pool.data_ptr(), n, m, SLICE, part_d2.data_ptr(),
-                part_idx.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream_handle(dev))
-    _build.check(status, "nn_bruteforce")
-    LAUNCHES["nn_bruteforce"] += 1
-    return d2, idx
+    return _launch(queries, pool)

@@ -15,13 +15,15 @@ Counterparts of the Pallas kernels in the JAX package's `tools/`:
   q (3, NQ), a query mask (NQ,) bool and candidates (3, NC, NQ) (the port's
   coalesced candidate layout), scal (2,) f32 = [kth, maxd2]. Returns (13,)
   f32: R row-major (9), t (3), conv. Not K1: no Jacobi scaling, no step
-  clamp, no stale test, and f32 throughout.
+  clamp, no stale test, and f32 throughout. On the card one thread-block
+  cluster of C CTAs splits the queries (K1's rule, `icp_gn.launch_shape`:
+  16 CTAs at 4096 x 80) and adds their sums in rank order.
 
 Indices are clamped into the table (the probes' are in range). The
 dispatch rule is `_common`'s: the plain version for CPU tensors, the kernel
-(or an exception) for CUDA tensors. The two gathers take `_common`'s lean
-launch path: their kernels take about as long on the card as a launch
-takes on the host.
+(or an exception) for CUDA tensors. All three take `_common`'s lean launch
+path: the gathers take about as long on the card as a launch takes on the
+host.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import LAUNCHES, bind, expect, expect_cuda, lean_entry, on_cpu, stream_handle
+from ._common import LAUNCHES, bind, expect, lean_entry, on_cpu
+from .icp_gn import MAX_CLUSTER, launch_shape
 
 F32 = torch.float32
 I32 = torch.int32
@@ -40,9 +43,10 @@ _ELEM_CODE = {F32: 0, I32: 1}
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _TAKE_ROWS_ARGS = [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp]
 _TAKE_LANES_ARGS = [_vp, _vp, _i, _i, _i, _vp, _vp]
-_GN_PROTO_ARGS = [_vp, _vp, _vp, _vp, _i, _i, _i, _vp, _vp]
+_GN_PROTO_ARGS = [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp, _vp]
 
 _fns: dict[str, object] = {}  # bound C entries (`_common.bind`)
+_cluster_ok: set[tuple[int, int]] = set()  # (device, C) gn_proto shapes checked resident
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +262,42 @@ def gn_proto_plain(q: torch.Tensor, qmask: torch.Tensor, cand: torch.Tensor,
     return torch.stack(carry)
 
 
+def max_active_clusters(clusters: int) -> int:
+    """How many clusters of `clusters` CTAs of gn_proto the current card
+    holds at once (cudaOccupancyMaxActiveClusters), after allowing sizes
+    above 8."""
+    fn = bind(_fns, "lis_gn_proto_cluster_check", [_i, ctypes.POINTER(_i)])
+    active = ctypes.c_int(0)
+    _build.check(fn(clusters, ctypes.byref(active)), f"gn_proto cluster check (C = {clusters})")
+    return active.value
+
+
+def _launch(q, qmask, cand, scal, n_inner: int, shape: tuple[int, int]) -> torch.Tensor:
+    """gn_proto on CUDA tensors, one cluster of shape (C, queries per CTA);
+    raises unless such a cluster can be resident."""
+    fn, stream = lean_entry(_fns, "lis_gn_proto", _GN_PROTO_ARGS, q, qmask, cand, scal)
+    clusters, per_cta = shape
+    if not 1 <= clusters <= MAX_CLUSTER:
+        raise ValueError(f"gn_proto: cluster of {clusters} CTAs, not 1-{MAX_CLUSTER}")
+    key = (q.get_device(), clusters)
+    if key not in _cluster_ok:
+        if max_active_clusters(clusters) < 1:
+            raise RuntimeError(f"gn_proto: no cluster of {clusters} CTAs can be resident")
+        _cluster_ok.add(key)
+    out = q.new_empty(13)
+    status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(), q.shape[1],
+                cand.shape[1], int(n_inner), clusters, per_cta, out.data_ptr(), stream)
+    _build.check(status, "gn_proto")
+    LAUNCHES["gn_proto"] += 1
+    return out
+
+
 def gn_proto(q: torch.Tensor, qmask: torch.Tensor, cand: torch.Tensor, scal: torch.Tensor,
              n_inner: int) -> torch.Tensor:
     """P3: `n_inner` f32 GN iterations from the identity; q (3, NQ) f32,
     qmask (NQ,) bool, cand (3, NC, NQ) f32, scal (2,) f32 [kth, maxd2] ->
     (13,) f32 [R 9 | t 3 | conv]. CPU tensors: the plain version; CUDA
-    tensors: the kernel."""
+    tensors: the cluster kernel at `launch_shape(NQ, NC)`."""
     expect("q", q, F32, (3, None))
     nq = q.shape[1]
     expect("qmask", qmask, torch.bool, (nq,))
@@ -271,11 +305,5 @@ def gn_proto(q: torch.Tensor, qmask: torch.Tensor, cand: torch.Tensor, scal: tor
     expect("scal", scal, F32, (2,))
     if on_cpu(q, qmask, cand, scal):
         return gn_proto_plain(q, qmask, cand, scal, n_inner)
-    fn = bind(_fns, "lis_gn_proto", _GN_PROTO_ARGS)
-    expect_cuda(q, qmask, cand, scal)
-    out = torch.empty(13, dtype=F32, device=q.device)
-    status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(), nq,
-                cand.shape[1], int(n_inner), out.data_ptr(), stream_handle(q.device))
-    _build.check(status, "gn_proto")
-    LAUNCHES["gn_proto"] += 1
-    return out
+    return _launch(q, qmask, cand, scal, n_inner, launch_shape(nq, cand.shape[1]))
+

@@ -14,12 +14,13 @@ repeated launch bit-equal; K1,
 K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
 1 (the f32 per-query work may contract into FMAs in the kernel), and a
 repeated launch bit-equal (the cluster's fixed-order reduction); K6
-indices equal and d^2 bit-equal (it rounds every f32 step as the plain
-version does); card against CPU poses 1e-4 over a short drive,
+indices equal and d^2 bit-equal (its exact re-check rounds every f32 step
+as the plain version does; its filter only decides which entries are
+re-checked), on random pools and on every case of tools/nn_cases.py; card against CPU poses 1e-4 over a short drive,
 single-stream or batched, fast or classic; the probe gathers `take_rows`
 and `take_lanes` bit-equal in every launch variant; `gn_proto` R and t within 1e-5 (the kernel and
 the plain version differ only by the order of the f32 block sums) and
-`conv` equal; a short LIO drive, card against CPU, 1e-4 on both branches.
+`conv` equal, at every cluster size, and a repeated launch bit-equal; a short LIO drive, card against CPU, 1e-4 on both branches.
 """
 
 import numpy as np
@@ -35,6 +36,7 @@ from lidar_imu_slam_tpu_torch.ops.kernels import (_common, icp_gn, nn_bruteforce
 from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
                                                      stack_raw_scans)
 from lidar_imu_slam_tpu_torch.parallel import streams
+from lidar_imu_slam_tpu_torch.tools import nn_cases
 from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pose_cases
 from lidar_imu_slam_tpu_torch.tools import probes as probe_tool
 
@@ -374,6 +376,22 @@ def test_nn_bruteforce_kernel_matches_plain(dev, n, m):
     np.testing.assert_array_equal(idx[:64].cpu().numpy(), dup)
 
 
+@pytest.mark.parametrize("slice_len", [1024, nn_bruteforce.SLICE])
+@pytest.mark.parametrize("case", nn_cases.CASES)
+def test_nn_bruteforce_adversarial_cases_bit_equal(dev, case, slice_len):
+    # N not a multiple of the 512-query tile, M not a multiple of the slice
+    qs, pts = nn_cases.make(case, 1000, 50_001, seed=3)
+    q, pool = torch.from_numpy(qs).to(dev), torch.from_numpy(pts).to(dev)
+    before = _common.LAUNCHES["nn_bruteforce"]
+    d2, idx = nn_bruteforce._launch(q, pool, slice_len)
+    again = nn_bruteforce._launch(q, pool, slice_len)
+    assert _common.LAUNCHES["nn_bruteforce"] == before + 2
+    d2_p, idx_p = nn_bruteforce.nn_bruteforce_plain(q, pool)
+    assert torch.equal(idx, idx_p) and torch.equal(again[1], idx_p)
+    assert torch.equal(d2.view(torch.int32), d2_p.view(torch.int32))
+    assert torch.equal(again[0].view(torch.int32), d2_p.view(torch.int32))
+
+
 def test_classic_drive_card_matches_cpu(dev):
     cfg = cfgmod.PipelineConfig(
         lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
@@ -475,13 +493,25 @@ def test_probe_gathers_match_plain(dev, case):
     assert out.dtype == ref.dtype and out.shape == ref.shape and torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("nq,nc,n_inner", [(4096, 80, 8), (1000, 16, 3)])
+@pytest.mark.parametrize("nq,nc,n_inner", [(4096, 80, 8), (1000, 16, 3), (2048, 80, 8)])
 def test_gn_proto_kernel_matches_plain(dev, nq, nc, n_inner):
     x = probe_tool.gn_inputs(dev, nq=nq, nc=nc)
     args = (x["q"], x["qmask"], x["cand"], x["scal"], n_inner)
+    clusters = icp_gn.launch_shape(nq, nc)[0]
+    assert clusters == {4096: 16, 1000: 1, 2048: 8}[nq]  # K1's rule; C < 16 below 4096 x 80
     before = _common.LAUNCHES["gn_proto"]
-    out = probes.gn_proto(*args).cpu().numpy()
-    assert _common.LAUNCHES["gn_proto"] == before + 1
+    out = _same_twice(lambda: (probes.gn_proto(*args),))[0].cpu().numpy()
+    assert _common.LAUNCHES["gn_proto"] == before + 2
+    ref = probes.gn_proto_plain(*args).cpu().numpy()
+    np.testing.assert_allclose(out[:12], ref[:12], rtol=0, atol=1e-5)
+    assert out[12] == ref[12]
+
+
+@pytest.mark.parametrize("clusters", [1, 4, 8, 16])
+def test_gn_proto_any_cluster_size_matches_plain(dev, clusters):
+    x = probe_tool.gn_inputs(dev)
+    args = (x["q"], x["qmask"], x["cand"], x["scal"], probe_tool.N_INNER)
+    out = probes._launch(*args, icp_gn.cluster_shape(probe_tool.NQ, clusters)).cpu().numpy()
     ref = probes.gn_proto_plain(*args).cpu().numpy()
     np.testing.assert_allclose(out[:12], ref[:12], rtol=0, atol=1e-5)
     assert out[12] == ref[12]

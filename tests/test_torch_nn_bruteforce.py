@@ -20,6 +20,7 @@ from lidar_imu_slam_tpu.ops.pallas import nn_bruteforce as jbf
 from lidar_imu_slam_tpu_torch import config as tcfg
 from lidar_imu_slam_tpu_torch.ops import voxel_map as tvm
 from lidar_imu_slam_tpu_torch.ops.kernels import nn_bruteforce as tbf
+from lidar_imu_slam_tpu_torch.tools import nn_cases
 
 torch.set_num_threads(1)
 
@@ -149,3 +150,204 @@ def test_exact_versus_hash_fetch(neighborhood):
     near = found & (d2_hash <= reach ** 2)
     assert near.sum() > 50 and torch.equal(d2[near], d2_hash[near])
     assert (d2 < d2_hash).any()  # the brute force reaches past the neighbourhood
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's filter (csrc/nn_bruteforce.cu), held on the CPU: its
+# margin on every pair of the adversarial cases, and an emulation of the
+# kernel's algorithm (seed, filter, exact re-check, merge) against the plain
+# version, bit for bit
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+U = tbf.FILTER_U
+STAGE, GROUP, STRIDE = 1024, 32, 64  # the kernel's kTile, kGroup, kSampleStride
+BEST_INIT = np.array([0x7F7F7F7F], np.int32).view(np.float32)[0]
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add: the product of two f32 is exact in f64."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(F32) \
+        if np.isscalar(a) else (a.astype(np.float64) * b + c).astype(F32)
+
+
+def _exact_d2(q, p):
+    """The plain version's f32 d^2 of every query (N, 3) to every entry (M, 3)."""
+    d = p[None, :, :] - q[:, None, :]
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def _staged(p):
+    """The kernel's staged entries: (coords, |p|^2) for in-range entries,
+    (0, +inf) for non-finite ones, (0, -inf) for finite ones beyond the range."""
+    inr = (np.abs(p) <= tbf.FILTER_RANGE).all(1)
+    fin = np.isfinite(p).all(1)
+    c = np.where(inr[:, None], p, F32(0))
+    pp = _fma(c[:, 0], c[:, 0], _fma(c[:, 1], c[:, 1], c[:, 2] * c[:, 2]))
+    pp = np.where(inr, pp, np.where(fin, F32(-np.inf), F32(np.inf)))
+    return c, pp, inr
+
+
+def _filter(q, c, pp, fused=True):
+    """a = d^2 - |q|^2 + rounding for every pair: fused as the kernel, or
+    un-fused (every product and sum rounded)."""
+    m2 = F32(-2) * q
+    if fused:
+        a = _fma(m2[:, 2:3], c[None, :, 2], pp[None, :])
+        a = _fma(m2[:, 1:2], c[None, :, 1], a)
+        return _fma(m2[:, 0:1], c[None, :, 0], a)
+    a = m2[:, 2:3] * c[None, :, 2] + pp[None, :]
+    a = m2[:, 1:2] * c[None, :, 1] + a
+    return m2[:, 0:1] * c[None, :, 0] + a
+
+
+def _round_up(x):
+    """f64 -> the nearest f32 at or above it (__double2float_ru)."""
+    f = np.asarray(x).astype(F32)
+    return np.where(f.astype(np.float64) < x, np.nextafter(f, F32(np.inf)), f)
+
+
+def _modes(q):
+    """0: filtered, 1: not finite (no re-check), 2: beyond the range (every group)."""
+    fin = np.isfinite(q).all(1)
+    inr = (np.abs(q) <= tbf.FILTER_RANGE).all(1)
+    return np.where(~fin, 1, np.where(inr, 0, 2))
+
+
+@pytest.mark.parametrize("case", nn_cases.CASES)
+@np.errstate(invalid="ignore")  # NaN queries
+def test_filter_margin_holds(case):
+    """Every pair of in-range query and entry: a (fused as the kernel, and
+    un-fused) is within the header's bound of |p|^2 - 2 q.p, and at most
+    the threshold taken with T = the pair's own exact d^2 (the smallest T
+    the kernel can hold when it must keep that entry)."""
+    q, pool = nn_cases.make(case, 64, 6000, seed=1)
+    p = pool.T
+    d2 = _exact_d2(q, p)
+    qq = (q.astype(np.float64) ** 2).sum(1)
+    ok_q = _modes(q) == 0
+    checked = 0
+    for s0 in range(0, p.shape[0], STAGE):
+        c, pp, inr = _staged(p[s0:s0 + STAGE])
+        p2 = float(pp[inr].max()) if inr.any() else 0.0
+        for fused in (True, False):
+            a = _filter(q, c, pp, fused)
+            pair = ok_q[:, None] & inr[None, :]
+            if not pair.any():
+                continue
+            thr = _round_up(tbf.filter_threshold(d2[:, s0:s0 + STAGE], qq[:, None], p2))
+            assert (a[pair] <= thr[pair]).all(), case
+            # the header's bound on the filter's error, pair by pair
+            pd = c.astype(np.float64)
+            big_a = (pd ** 2).sum(1)[None, :] - 2.0 * (q.astype(np.float64) @ pd.T)
+            pn = np.sqrt((pd ** 2).sum(1))[None, :]
+            bound = 6.0000004 * U * pn ** 2 + 8.0000006 * U * np.sqrt(qq)[:, None] * pn + 1e-30
+            assert (np.abs(a - big_a)[pair] <= bound[pair]).all(), case
+            checked += int(pair.sum())
+    assert checked > 0 or case == "all_inf"
+    if case == "near_ties":
+        # its queries' nearest entries: exact ties, and d^2 one ulp apart
+        near = np.sort(d2[:32], axis=1)[:, :8].view(np.int32)
+        gaps = np.diff(near, axis=1)
+        assert (gaps == 0).any() and (gaps == 1).any()
+
+
+@np.errstate(invalid="ignore")
+def _emulate(q, pool, slice_len=tbf.SLICE):
+    """The kernel's algorithm in numpy, slice after slice: the seed over
+    every STRIDE-th entry, per stage the filter threshold from the smaller
+    of the slice's best and the shared best, the group test, the exact
+    re-check (first minimum below the running best), the tightened
+    threshold, the shared best's update; then the ordered merge. Returns
+    (d2, idx, share of query-group pairs re-checked)."""
+    p = pool.T
+    n, m = q.shape[0], p.shape[0]
+    d2 = _exact_d2(q, p)
+    mode = _modes(q)
+    qq = (q.astype(np.float64) ** 2).sum(1)
+    seed = np.fmin.reduce(d2[:, ::STRIDE], axis=1, initial=np.inf) if m else np.full(n, np.inf)
+    shared = np.minimum(seed, BEST_INIT).astype(F32)
+    parts, rechecked, groups = [], 0, 0
+    for b in range(0, max(m, 1), slice_len):
+        best = np.full(n, np.inf, F32)
+        best_i = np.zeros(n, np.int64)
+        for s0 in range(b, min(b + slice_len, m), STAGE):
+            s1 = min(s0 + STAGE, m)
+            c, pp, inr = _staged(p[s0:s1])
+            p2 = float(pp[inr].max()) if inr.any() else 0.0
+            qf = np.where((mode == 0)[:, None], q, F32(0))
+            a = np.where((mode == 0)[:, None], _filter(qf, c, pp), pp[None, :])
+            thr = np.where(mode == 0, _round_up(tbf.filter_threshold(
+                np.minimum(best, shared), qq, p2)), np.where(mode == 2, np.inf, np.nan))
+            for g in range(0, s1 - s0, GROUP):
+                sl = slice(g, min(g + GROUP, s1 - s0))
+                hit = np.fmin.reduce(a[:, sl], axis=1) <= thr  # NaN: False
+                groups += n
+                rechecked += int(hit.sum())
+                exact = np.where(np.isfinite(pp[sl]) | (pp[sl] < 0), d2[:, s0 + g:s0 + sl.stop],
+                                 np.inf)
+                gmin = exact.min(1)
+                better = hit & (gmin < best)
+                first = np.argmax(exact == gmin[:, None], axis=1)
+                best = np.where(better, gmin, best)
+                best_i = np.where(better, s0 + g + first, best_i)
+                thr = np.where(hit & (mode == 0), np.minimum(thr, _round_up(
+                    tbf.filter_threshold(best, qq, p2))), thr)
+            shared = np.where(mode == 0, np.minimum(shared, best), shared).astype(F32)
+        parts.append((best, best_i))
+    out_d2, out_i = parts[0]
+    for d, i in parts[1:]:
+        better = d < out_d2
+        out_d2, out_i = np.where(better, d, out_d2), np.where(better, i, out_i)
+    return out_d2.astype(F32), out_i.astype(np.int32), rechecked / max(groups, 1)
+
+
+@pytest.mark.parametrize("case", nn_cases.CASES)
+def test_filter_algorithm_matches_plain(case):
+    """The kernel's algorithm, emulated, is bit-equal to the plain version
+    on every adversarial case, at an N that is not a multiple of the
+    kernel's 512-query tile and an M that is not a multiple of its slice."""
+    q, pool = nn_cases.make(case, 100, 3 * tbf.SLICE + 1234, seed=2)
+    d2_e, idx_e, share = _emulate(q, pool)
+    d2_p, idx_p = tbf.nn_bruteforce_plain(torch.from_numpy(q), torch.from_numpy(pool))
+    np.testing.assert_array_equal(idx_e, idx_p.numpy())
+    np.testing.assert_array_equal(d2_e.view(np.int32), d2_p.numpy().view(np.int32))
+    if case in ("nonfinite_queries", "all_inf"):
+        bad = ~np.isfinite(q).all(1) if case == "nonfinite_queries" else np.ones(len(q), bool)
+        assert np.isinf(d2_e[bad]).all() and not idx_e[bad].any()
+    if case in ("far", "slice_ties", "on_point"):
+        assert share < 0.05, share  # the filter spares most groups
+
+
+def test_filter_constants_mirror_the_kernel():
+    """The Python mirror of the filter (and this file's emulation) reads the
+    constants of csrc/nn_bruteforce.cu."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tbf.__file__), "..", "..", "csrc",
+                            "nn_bruteforce.cu")).read()
+
+    def const(name):
+        return float(re.search(rf"constexpr \w+ {name} = ([0-9.e+-]+)f?;", src).group(1))
+
+    assert const("kRange") == tbf.FILTER_RANGE and const("kU") == tbf.FILTER_U
+    assert const("kMarginC") == tbf.FILTER_C and const("kMarginAbs") == tbf.FILTER_ABS
+    assert (const("kTile"), const("kGroup"), const("kSampleStride")) == (STAGE, GROUP, STRIDE)
+    assert tbf.SLICE % STAGE == 0
+
+
+def test_nan_pool_entry_hides_its_chunk():
+    """Pins an open fault (ROADMAP queue 3): a NaN pool entry hides the
+    entries around it, JAX's 8192-entry tile and the plain version's
+    32768-entry chunk alike, so the two disagree where the nearest entry
+    lies in another JAX tile of the same chunk. (`pool_from_map` writes
+    +inf, never NaN; the card kernel skips only the NaN entry.)"""
+    m = 3 * jbf.MT
+    pool = np.full((3, m), 50.0, np.float32)
+    pool[:, 100] = np.nan
+    pool[:, 19_999] = [0.1, 0.0, 0.0]
+    q = np.zeros((jbf.QT, 3), np.float32)
+    (d2_j, idx_j), (d2_t, idx_t) = _both(q, pool)
+    assert idx_j[0] == 19_999 and d2_j[0] == np.float32(0.1) * np.float32(0.1)
+    assert idx_t[0] == 0 and np.isinf(d2_t[0])

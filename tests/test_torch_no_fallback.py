@@ -60,7 +60,7 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_build, "load", _fail_load)
     monkeypatch.setattr(pose_chain, "_fns", {})
     monkeypatch.setattr(icp_gn, "_fn", None)
-    monkeypatch.setattr(nn_bruteforce, "_fn", None)
+    monkeypatch.setattr(nn_bruteforce, "_fns", {})
     monkeypatch.setattr(probes, "_fns", {})
 
     def forbidden(*a, **k):
@@ -193,6 +193,41 @@ def test_lean_gather_wrappers_launch_only_on_cuda(monkeypatch, kernel):
     assert entered == [] and _common.LAUNCHES == before
     assert set(probes._fns) == {f"lis_{kernel}"}  # bound once, with its argtypes
     assert probes._fns[f"lis_{kernel}"].restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("kernel", ["nn_bruteforce", "gn_proto"])
+def test_lean_k6_and_gn_proto_launch_only_on_cuda(monkeypatch, kernel):
+    # K6 and gn_proto take the lean path too: with a library that loads,
+    # non-CPU tensors off the card (meta) stop at the device check, with no
+    # launch, no cluster check and no plain version
+    entered = []
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                entered.append(name)
+                return 0
+            return entry
+
+    monkeypatch.setattr(_build, "load", Library)
+    mod = nn_bruteforce if kernel == "nn_bruteforce" else probes
+    monkeypatch.setattr(mod, "_fns", {})
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for non-CPU tensors")
+
+    monkeypatch.setattr(mod, f"{kernel}_plain", forbidden)
+    f32 = torch.float32
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        if kernel == "nn_bruteforce":
+            nn_bruteforce.nn_bruteforce(_meta((4096, 3), f32), _meta((3, 8192), f32))
+        else:
+            probes.gn_proto(_meta((3, 256), f32), _meta((256,), torch.bool),
+                            _meta((3, 16, 256), f32), _meta((2,), f32), 8)
+    assert entered == [] and _common.LAUNCHES == before
+    assert set(mod._fns) == {f"lis_{kernel}"}  # bound once, with its argtypes
+    assert mod._fns[f"lis_{kernel}"].restype is ctypes.c_int
 
 
 def _pose_args(kernel, fault):

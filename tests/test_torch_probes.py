@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
 from lidar_imu_slam_tpu_torch.ops.kernels import probes as kp
 from lidar_imu_slam_tpu_torch.tools import probes as tp
 
@@ -193,3 +194,15 @@ def test_probe_entry_point_on_cpu():
     hit = len(np.unique(tp.gather_inputs("cpu")["idx"].numpy()))
     assert p1["bytes"] == 2048 * 4 + hit * 128 * 4 + 2048 * 128 * 4
     assert tp.main(["gather", "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("nq,nc,clusters", [(4096, 80, 16), (2048, 80, 8), (1000, 16, 1),
+                                            (4096, 16, 4), (100_000, 80, 16)])
+def test_gn_proto_cluster_rule(nq, nc, clusters):
+    # gn_proto's cluster is K1's: min(16, ceil(N * NC / (256 * 80))) CTAs,
+    # each a whole number of warps of queries, together covering N
+    c, per = icp_gn.launch_shape(nq, nc)
+    assert c == clusters and per % 32 == 0 and c * per >= nq > (c - 1) * per
+    src = open(os.path.join(os.path.dirname(kp.__file__), "..", "..", "csrc", "probes.cu")).read()
+    assert f"constexpr int kGnMaxCluster = {icp_gn.MAX_CLUSTER};" in src
+    assert "constexpr int kGnThreads = 256;" in src  # the rule's 256 queries a CTA
