@@ -93,6 +93,30 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    perturbed VLP-16 streams (sigma 0.01 m), 2 warm + 20 timed steps;
    every stream must end within 0.5 m of the ground truth
    (tracking_frac 1.0).
+13. runner: `host/runner.OdometryRunner(cfg, device).run` over the same
+   120 scans as host messages (xyz, per-point time, stamp), under the
+   deployment's own in-step eviction and `auto_rebuild`: poses and
+   metrics bit-equal to a hand loop that makes the same calls and copies
+   each scan's outputs at once; ATE (mid-scan) at most 0.12 m; scans/s,
+   the StepTimer's p50 / p95 and host reads per scan by call site over the
+   whole run; K2 and K3 once a scan, K1 launched (counters zeroed just
+   before the run); the runner layer's own times (pack + upload +
+   preprocess on the worker, host and device; the time outside the step;
+   the final fetch); the hand loop's rate. Then in two turns the runner
+   as it is, with the upload from pageable memory, with the pack on the
+   main thread, and without the in-step eviction and compaction check,
+   beside the direct loop's p50 of phase 7;
+14. LIO runner: `LioRunner(lio_cfg, device).run_lio` on the same scans
+   with the 100 Hz IMU stream as rows: bit-equal to its hand loop, scan-end
+   ATE at most LIO_ATE_LIMIT_M, `used_imu` on every scan after static
+   init, `imu_overflow` 0, the same numbers and launch checks, beside
+   phase 8b's direct loop;
+15. CLI: `python -m lidar_imu_slam_tpu_torch.cli --synthetic 40` (the
+   `kitti` preset: 131,072 points, a 2^18-slot map, the fast path) with
+   the trajectory, metrics and clouds written: exit 0, 40 poses and
+   records, ATE at most 0.12 m, the PLY files finite; then `--bag --lio`
+   on a bag of 30 HDL-64E scans and their IMU (`tools/bag_writer.py`):
+   exit 0, one pose a scan. Each with its seconds.
 One step of each batched drive runs under
 `torch.cuda.set_sync_debug_mode("error")`: the batched step never waits
 for the device.
@@ -561,7 +585,9 @@ def _ate(poses, gt, shift=0.5):
 
 
 def render_hdl_drive(dev):
-    """The HDL-64E rolling-shutter drive (bench.py:_make_raws), uploaded."""
+    """The HDL-64E rolling-shutter drive (bench.py:_make_raws): the scans
+    uploaded, the same scans as host messages {"xyz", "time", "stamp"}
+    (what the runners take), and the ground truth."""
     import torch
 
     from lidar_imu_slam_tpu_torch.host import synthetic
@@ -570,16 +596,17 @@ def render_hdl_drive(dev):
     t0 = time.perf_counter()
     world = synthetic.make_world(seed=0, n_points=600_000, extent=(160.0, 40.0, 12.0))
     gt = synthetic.make_trajectory(n_poses=N_SCANS, speed=8.0, yaw_rate=0.01, dt=0.1)
-    raws = []
+    raws, msgs = [], []
     for i in range(N_SCANS):
         pts, rel = synthetic.render_scan_rolling(
             world, gt[i], gt[min(i + 1, N_SCANS - 1)], 0.1, POINTS_PER_SCAN,
             2.5, 80.0, noise=0.02, seed=i)
+        msgs.append({"xyz": pts, "time": i * 0.1 + rel, "stamp": i * 0.1})
         raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1,
                                   max_points=POINTS_PER_SCAN, device=dev))
     torch.cuda.synchronize()
     print(f"slice: rendered and uploaded {N_SCANS} scans in {time.perf_counter() - t0:.1f} s")
-    return raws, gt
+    return raws, msgs, gt
 
 
 def _op_counter():
@@ -1582,6 +1609,419 @@ def lio_slice_phase(dev, cfg, raws, gt):
     return stats
 
 
+def _runner_fields(out, fields) -> list:
+    """One scan's pose and kept outputs, copied to the host at once."""
+    return [out.pose.cpu().numpy()] + [float(getattr(out, f)) for f in fields]
+
+
+def _assert_like_hand_loop(what, runner, hand, fields):
+    """The runner's poses and metrics bit-equal to the hand loop's."""
+    poses = np.stack(runner.poses)
+    same = np.array_equal(poses, np.stack([h[0] for h in hand]))
+    for rec, h in zip(runner.metrics.records, hand):
+        same = same and all(rec[f] == v for f, v in zip(fields, h[1:]))
+    print(f"{what}: poses and metrics bit-equal to the hand loop's (a copy a scan): {same}")
+    _require(same, f"{what}: the deferred fetch disagrees with the hand loop")
+
+
+def _maybe_rebuild_like_runner(m, cfg, i):
+    """`OdometryRunner._maybe_rebuild`'s check, for the hand loops."""
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+
+    cap = cfg.map.capacity
+    if i % 64 == 0 and i:
+        tombs, cursor = int(m.tombstones), int(m.next_slot)
+        if tombs > cap // 8 or (cursor > cap - cap // 4 and tombs > 0):
+            return voxel_map.rebuild(m, cfg.map)
+    return m
+
+
+class _InlineExecutor:
+    """A one-worker executor that runs each task at once on the calling
+    thread (the runner without its prefetch thread)."""
+
+    def __init__(self, max_workers=1):
+        pass
+
+    def submit(self, fn, *args):
+        import concurrent.futures
+
+        fut = concurrent.futures.Future()
+        fut.set_result(fn(*args))
+        return fut
+
+    def shutdown(self, **kw):
+        pass
+
+
+def _pageable_to_device(arrays, device):
+    """`preprocess.to_device` as a copy from pageable memory (the upload
+    before the runner slice), for the comparison in the runner phase."""
+    import torch
+
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _timed_run(make_runner, drive, launches=False):
+    """One run of a fresh runner: wall seconds, host reads by call site
+    (sync debug mode "warn" over the whole run, the worker thread's too)
+    and, with `launches`, the kernel launches counted over the run."""
+    import warnings
+
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+
+    runner = make_runner()
+    torch.cuda.synchronize()
+    if launches:
+        _common.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            drive(runner)  # ends in the one copy of the run's outputs
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts = dict(_common.LAUNCHES) if launches else None
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                if "called a synchronizing" in str(w.message))
+    return runner, wall, sites, counts
+
+
+def _layer_timed(cls):
+    """`cls` with the runner layer's host times recorded: `_pack` (pack,
+    upload, preprocess, on the worker thread) and `_collect` (the one
+    fetch at the end), host clock, no synchronize."""
+
+    class Timed(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.pack_s, self.collect_s = [], []
+
+        def _pack(self, msg):
+            t0 = time.perf_counter()
+            scan = super()._pack(msg)
+            self.pack_s.append(time.perf_counter() - t0)
+            return scan
+
+        def _collect(self, *a):
+            t0 = time.perf_counter()
+            super()._collect(*a)
+            self.collect_s.append(time.perf_counter() - t0)
+
+    return Timed
+
+
+def _pack_device_ms(runner, msg, reps: int = 3):
+    """The card's time for `runner._pack(msg)` (upload + preprocess): the
+    stream sleeps while the host queues `reps` packs; None when queueing
+    outlasted half the sleep (then the events would time the host)."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.tools import probes as tp
+
+    runner._pack(msg)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(tp.SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner._pack(msg)
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return None if queued * 1e3 >= 0.5 * tp.SLEEP_MS else start.elapsed_time(end) / reps
+
+
+def _layer_line(what, runner, wall, n, msg) -> str:
+    """The runner layer's numbers (PERF.md §3): pack + upload + preprocess
+    per scan on the worker (host) and on the card, the host time per scan
+    outside the step (the wait for the prefetch and the loop's
+    bookkeeping), the final fetch."""
+    dev_ms = _pack_device_ms(runner, msg)
+    outside = (wall - sum(runner.timer.samples) - sum(runner.collect_s)) / n
+    return (f"{what} layer: pack + upload + preprocess {np.mean(runner.pack_s) * 1e3:.3f} ms "
+            f"host (worker thread, p50 {np.median(runner.pack_s) * 1e3:.3f}), "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} device; outside the "
+            f"step {outside * 1e3:.3f} ms a scan (host); the final fetch "
+            f"{sum(runner.collect_s) * 1e3:.3f} ms for {n} scans (host)")
+
+
+def _runner_line(what, runner, wall, sites, n) -> str:
+    return (f"{what}: {n / wall:.2f} scans/s (host clock, the final fetch included); "
+            f"StepTimer p50 {runner.timer.p50 * 1e3:.3f} ms p95 {runner.timer.p95 * 1e3:.3f} ms "
+            f"(host clock per step, no sync); host reads per scan {sum(sites.values()) / n:.2f} "
+            f"by call site {dict(sites.most_common(8))}")
+
+
+def runner_phase(dev, cfg, msgs, gt, direct):
+    """`OdometryRunner(cfg, device).run` over the 120 HDL-64E scan
+    messages under the deployment's own config (in-step eviction and
+    `auto_rebuild`): bit-equal to a hand loop that makes the same calls
+    and copies each scan's outputs at once; ATE, scans/s, StepTimer p50 /
+    p95, host reads by call site, launches (K2 / K3 once a scan, K1); then
+    the same run with the upload from pageable memory, beside the direct
+    loop's p50 of the slice phase."""
+    from lidar_imu_slam_tpu_torch.host import runner as runner_mod
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops import preprocess
+
+    t_phase = time.perf_counter()
+    fields = runner_mod.ODOMETRY_FIELDS
+
+    def make():
+        return _layer_timed(runner_mod.OdometryRunner)(cfg, device=dev)
+
+    def drive(r):
+        r.run(iter(msgs))
+
+    make().run(iter(msgs[:3]))  # warm-up: the worker thread's first CUDA work
+    runner, wall, sites, launches = _timed_run(make, drive, launches=True)
+    n = len(runner.poses)
+    poses = np.stack(runner.poses)
+    _require(n == N_SCANS and np.isfinite(poses).all(), "runner: poses missing or not finite")
+    ate = _ate(poses, gt, shift=0.5)
+    print(_runner_line("runner", runner, wall, sites, n))
+    print(_layer_line("runner", runner, wall, n, msgs[0]))
+    print(f"runner: ATE {ate:.4f} m (mid-scan, limit {ATE_LIMIT_M}); launches {launches}")
+    print(f"runner: the direct loop of the slice phase: p50 {direct['p50_ms']:.3f} ms "
+          f"(CUDA events), {direct['scans_per_s']:.2f} scans/s")
+
+    state = kiss_icp.init_state(cfg, dev)
+    hand = []
+    t0 = time.perf_counter()
+    for i, m in enumerate(msgs):
+        scan = preprocess.preprocess_scan(preprocess.pack_raw_scan(
+            m["xyz"], time=m["time"], stamp=m["stamp"], max_points=cfg.lidar.max_points,
+            device=dev), cfg.lidar)
+        state, out = kiss_icp.register_frame_step(state, scan, cfg)
+        hand.append(_runner_fields(out, fields))
+        state = state._replace(map=_maybe_rebuild_like_runner(state.map, cfg, i))
+    print(f"runner: the hand loop (the same calls on one thread, a copy a scan) "
+          f"{n / (time.perf_counter() - t0):.2f} scans/s")
+    _assert_like_hand_loop("runner", runner, hand, fields)
+
+    # what the prefetch and the upload are worth here: the runner as it
+    # is, with the upload from pageable memory, with the pack on the main
+    # thread, and with the slice phase's config (no in-step eviction, no
+    # compaction check); two turns, one run of each a turn
+    body = cfg.replace(map=dataclasses.replace(cfg.map, auto_evict=False, auto_rebuild=False))
+    variants = (("as it is", make, None, None),
+                ("upload from pageable memory", make, "to_device", _pageable_to_device),
+                ("pack on the main thread", make, "executor", _InlineExecutor),
+                ("no in-step eviction or compaction check",
+                 lambda: runner_mod.OdometryRunner(body, device=dev), None, None))
+    turns = collections.defaultdict(list)
+    for turn in range(2):
+        for what, maker, swap, repl in variants:
+            owner = preprocess if swap == "to_device" else runner_mod.concurrent.futures
+            attr = "to_device" if swap == "to_device" else "ThreadPoolExecutor"
+            kept = getattr(owner, attr)
+            if swap:
+                setattr(owner, attr, repl)
+            try:
+                other, wall_v, sites_v, _ = _timed_run(maker, drive)
+            finally:
+                setattr(owner, attr, kept)
+            if turn == 0 and swap == "to_device":  # its upload's reads by call site
+                print(_runner_line(f"runner ({what})", other, wall_v, sites_v, n))
+            turns[what].append(f"{n / wall_v:.2f} scans/s, StepTimer p50 "
+                               f"{other.timer.p50 * 1e3:.3f} ms, reads/scan "
+                               f"{sum(sites_v.values()) / n:.2f}")
+    for what, runs in turns.items():
+        print(f"runner turns ({what}): " + " | ".join(runs))
+    print(f"runner: phase {time.perf_counter() - t_phase:.1f} s")
+    for name in ("fused_gn_carry", "pose_pre", "pose_post"):
+        _require(launches[name] > 0, f"runner: kernel {name} never launched")
+    _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
+             "runner: pose kernels did not run once per scan")
+    _require(ate <= ATE_LIMIT_M, f"runner: ATE {ate:.4f} m above {ATE_LIMIT_M}")
+
+
+def _imu_rows(gt):
+    """The 100 Hz IMU stream of the trajectory as (t, gyro, acc) rows, its
+    times + 1 ms (off the scan boundaries, as bench.py:_bench_lio's
+    packets)."""
+    from lidar_imu_slam_tpu_torch.host import synthetic
+
+    t, gyro, acc = synthetic.make_imu_stream(gt, 0.1, imu_rate=100.0)
+    return np.column_stack([t + 1e-3, gyro, acc])
+
+
+def lio_runner_phase(dev, cfg, msgs, gt, direct):
+    """`LioRunner(lio_cfg, device).run_lio` over the same scan messages and
+    the 100 Hz IMU stream as rows: bit-equal to a hand loop (the same
+    synchronizer bucketing, a copy a scan); scan-end ATE, used_imu after
+    static init, no IMU overflow, scans/s, StepTimer p50 / p95, host reads
+    by call site, launches, beside the LIO slice's direct loop."""
+    from lidar_imu_slam_tpu_torch.host import runner as runner_mod
+    from lidar_imu_slam_tpu_torch.host.stream_sync import StreamSynchronizer
+    from lidar_imu_slam_tpu_torch.models import lio
+    from lidar_imu_slam_tpu_torch.ops import preprocess
+
+    t_phase = time.perf_counter()
+    cfg = lio_cfg(cfg)
+    fields = runner_mod.LIO_FIELDS
+    imu = _imu_rows(gt)
+
+    def make():
+        return _layer_timed(runner_mod.LioRunner)(cfg, device=dev)
+
+    def drive(r):
+        r.run_lio(iter(msgs), imu)
+
+    runner, wall, sites, launches = _timed_run(make, drive, launches=True)
+    n = len(runner.poses)
+    poses = np.stack(runner.poses)
+    _require(n == N_SCANS and np.isfinite(poses).all(), "LIO runner: poses missing or not finite")
+    recs = runner.metrics.records
+    inited = np.array([r["imu_initialized"] for r in recs]) > 0
+    used = np.array([r["used_imu"] for r in recs]) > 0
+    overflow = sum(r["imu_overflow"] for r in recs)
+    init_scan = int(np.argmax(inited)) if inited.any() else -1
+    ate = _ate(poses, gt, shift=1.0)
+    print(_runner_line("LIO runner", runner, wall, sites, n))
+    print(_layer_line("LIO runner", runner, wall, n, msgs[0]))
+    print(f"LIO runner: ATE {ate:.4f} m (scan end, limit {LIO_ATE_LIMIT_M}); imu_initialized "
+          f"from scan {init_scan}, used_imu on {int(used.sum())} scans, imu_overflow {overflow}; "
+          f"launches {launches}")
+    print(f"LIO runner: the direct loop of the LIO slice phase: p50 {direct['p50_ms']:.3f} ms "
+          f"(CUDA events), {direct['scans_per_s']:.2f} scans/s")
+
+    state = lio.init_state(cfg, dev)
+    sync = StreamSynchronizer(cfg.imu)
+    cap, cursor, hand = cfg.imu.max_samples_per_scan, 0, []
+    t0 = time.perf_counter()
+    for i, m in enumerate(msgs):
+        t_end = runner_mod.LioRunner._host_t_end(m)
+        if not sync.offset_set:
+            sync.push_imu(imu[cursor, 0], imu[cursor, 1:4], imu[cursor, 4:7])
+            cursor += 1
+        sync.push_scan(m["stamp"])
+        while cursor < len(imu) and imu[cursor, 0] - sync.time_offset <= t_end:
+            sync.push_imu(imu[cursor, 0], imu[cursor, 1:4], imu[cursor, 4:7])
+            cursor += 1
+        take = sync.take_until(t_end, cap)
+        scan = preprocess.preprocess_scan(preprocess.pack_raw_scan(
+            m["xyz"], time=m["time"], stamp=m["stamp"], max_points=cfg.lidar.max_points,
+            device=dev), cfg.lidar)
+        packet = lio.pack_imu_packet(take[:, 0], take[:, 1:4], take[:, 4:7], cap, device=dev)
+        state, out = lio.step_donated(state, scan, packet, cfg)
+        hand.append(_runner_fields(out, fields))
+        odo = state.odo._replace(map=_maybe_rebuild_like_runner(state.odo.map, cfg, i))
+        state = state._replace(odo=odo)
+    print(f"LIO runner: the hand loop (the same calls on one thread, a copy a scan) "
+          f"{n / (time.perf_counter() - t0):.2f} scans/s")
+    _assert_like_hand_loop("LIO runner", runner, hand, fields)
+    print(f"LIO runner: phase {time.perf_counter() - t_phase:.1f} s")
+    _require(init_scan >= 0, "LIO runner: the IMU static initialization never completed")
+    _require(bool(used[init_scan + 1:].all()), "LIO runner: a scan after init skipped the IMU")
+    _require(overflow == 0, f"LIO runner: {overflow} IMU samples dropped")
+    _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
+             "LIO runner: K2 / K3 did not run once per scan")
+    _require(launches["fused_gn_carry"] > 0, "LIO runner: K1 never launched")
+    _require(ate <= LIO_ATE_LIMIT_M, f"LIO runner: ATE {ate:.4f} m above {LIO_ATE_LIMIT_M}")
+
+
+def _cli(args, tmp) -> tuple[dict, float]:
+    """`python -m lidar_imu_slam_tpu_torch.cli ARGS` in a process of its
+    own (from this checkout); its summary line and wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lidar_imu_slam_tpu_torch.cli", *args],
+                          cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    _require(proc.returncode == 0, f"cli {' '.join(args)}: exit {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def _cli_counted(args, dev) -> None:
+    """`cli.main(ARGS, device)` in this process with host reads counted by
+    call site (sync debug mode "warn"): scans/s on the host clock from the
+    parse of the arguments to the summary line, and the summary's p50 /
+    p95 step ms."""
+    import contextlib
+    import io
+    import warnings
+
+    import torch
+
+    from lidar_imu_slam_tpu_torch import cli
+
+    out = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(args, device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    _require(rc == 0, f"cli.main {' '.join(args)}: exit {rc}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    n = summary["scans"]
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                if "called a synchronizing" in str(w.message))
+    print(f"cli {args[0]} {args[1]} in this process: {n / wall:.2f} scans/s (host clock, the "
+          f"synthetic scans rendered on the way); p50 {summary['p50_step_ms']} ms p95 "
+          f"{summary['p95_step_ms']} ms a step; host reads per scan {sum(sites.values()) / n:.2f} "
+          f"by call site {dict(sites.most_common(8))}")
+
+
+def cli_phase(dev, msgs, gt):
+    """The CLI as its users start it, at full width (the `kitti` preset:
+    131,072 points, a 2^18-slot map, the fast path): `--synthetic 40` with
+    the trajectory, metrics and clouds written; then `--bag --lio` on a
+    bag of the first 30 HDL-64E scans and their 100 Hz IMU
+    (`tools/bag_writer.py`)."""
+    import tempfile
+
+    from lidar_imu_slam_tpu_torch.tools import bag_writer
+    from lidar_imu_slam_tpu_torch.utils import cloud_io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        summary, wall = _cli(["--synthetic", "40", "--out", "traj.tum", "--metrics-out",
+                              "m.jsonl", "--save-clouds", "c", "--save-clouds-every", "10"], tmp)
+        tum = open(os.path.join(tmp, "traj.tum")).read().splitlines()
+        recs = open(os.path.join(tmp, "m.jsonl")).read().splitlines()
+        plys = sorted(os.listdir(os.path.join(tmp, "c")))
+        finite = all(np.isfinite(cloud_io.read_ply(os.path.join(tmp, "c", f))).all()
+                     for f in plys)
+        print(f"cli --synthetic 40: {wall:.1f} s with the process start; summary {summary}; "
+              f"{len(tum)} TUM lines, {len(recs)} metrics records, {len(plys)} PLY files, all "
+              f"finite: {finite}")
+        _require(summary["scans"] == 40 and len(tum) == 40 and len(recs) == 40,
+                 "cli --synthetic 40: not one pose and record a scan")
+        _require(summary["ate_rmse_m"] <= ATE_LIMIT_M,
+                 f"cli --synthetic 40: ATE {summary['ate_rmse_m']} m above {ATE_LIMIT_M}")
+        _require(len(plys) == 9 and finite, "cli --synthetic 40: clouds missing or not finite")
+        _cli_counted(["--synthetic", "40", "--out", os.path.join(tmp, "again.tum")], dev)
+
+        n_bag = min(30, len(msgs))
+        t0 = time.perf_counter()
+        imu = _imu_rows(gt)
+        bag_writer.write_bag(os.path.join(tmp, "drive.bag"), msgs[:n_bag],
+                             imu[imu[:, 0] <= n_bag * 0.1])
+        t_write = time.perf_counter() - t0
+        summary, wall = _cli(["--bag", "drive.bag", "--lio", "--out", "bag.tum"], tmp)
+        tum = open(os.path.join(tmp, "bag.tum")).read().splitlines()
+        print(f"cli --bag --lio: bag of {n_bag} scans written in {t_write:.1f} s, "
+              f"{os.path.getsize(os.path.join(tmp, 'drive.bag')) / 1e6:.1f} MB; the CLI "
+              f"{wall:.1f} s with the process start and the bag's decoding; summary {summary}; "
+              f"{len(tum)} TUM lines")
+        _require(summary["scans"] == n_bag and len(tum) == n_bag,
+                 "cli --bag --lio: not one pose a scan")
+
+
 def _build_kernels() -> None:
     """Build (or find) the kernel library and print ptxas' report."""
     from lidar_imu_slam_tpu_torch.ops.kernels import _build
@@ -1623,7 +2063,7 @@ def measure(dev) -> dict:
     kernels = {k["name"]: {key: v for key, v in k.items() if key.endswith("ms")}
                for k in kernel_phase(dev, cfg) if k["name"] in ("pose_pre", "pose_post")}
     kernels.update(_k6_proto_times(dev))
-    raws, gt = render_hdl_drive(dev)
+    raws, _, gt = render_hdl_drive(dev)
     _, fast = slice_phase(dev, cfg, raws, gt)
     return dict(kernels=kernels, slice=fast, lio=lio_slice_phase(dev, cfg, raws, gt))
 
@@ -1711,10 +2151,10 @@ def main(argv=None) -> int:
     small_drive_phase(dev, packed_nn=False)
     small_classic_phase(dev)
     small_lio_phase(dev)
-    raws, gt = render_hdl_drive(dev)
-    launches, _ = slice_phase(dev, cfg, raws, gt)
+    raws, msgs, gt = render_hdl_drive(dev)
+    launches, fast = slice_phase(dev, cfg, raws, gt)
     launches.update(probe_launches)
-    lio_slice_phase(dev, cfg, raws, gt)
+    lio = lio_slice_phase(dev, cfg, raws, gt)
     state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
     launches["nn_bruteforce"] = nn_on_path_phase(dev, cfg64, state64, out64)
     del state64, out64
@@ -1724,6 +2164,10 @@ def main(argv=None) -> int:
     launches["fused_gn_batched"] = multi_stream_phase(dev, cfg, raws, gt)["fused_gn_batched"]
     del raws
     monte_carlo_phase(dev, cfgmod)
+    runner_phase(dev, cfg, msgs, gt, fast)
+    lio_runner_phase(dev, cfg, msgs, gt, lio)
+    cli_phase(dev, msgs, gt)
+    del msgs
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _require(k["launches"] > 0, f"kernel {k['name']} never launched on its path")

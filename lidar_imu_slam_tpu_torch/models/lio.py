@@ -31,7 +31,7 @@ from ..config import PipelineConfig
 from ..ops import deskew as deskew_ops
 from ..ops import imu as imu_ops
 from ..ops import lie, voxel_map
-from ..ops.preprocess import Scan
+from ..ops.preprocess import Scan, to_device
 from . import ekf as ekf_mod
 from . import kiss_icp
 
@@ -301,7 +301,8 @@ def step_donated(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: Pi
 
 def pack_imu_packet(times, gyros, accs, max_samples: int,
                     device: torch.device | str = "cuda") -> ekf_mod.ImuPacket:
-    """Pad per-scan IMU arrays into a packet of `max_samples` on `device`."""
+    """Pad per-scan IMU arrays into a packet of `max_samples` on `device`
+    (one copy, `preprocess.to_device`)."""
     times = np.asarray(times, np.float64)
     n = times.shape[0]
     if n > max_samples:
@@ -310,13 +311,10 @@ def pack_imu_packet(times, gyros, accs, max_samples: int,
     def pad(a):
         out = np.zeros((max_samples,) + a.shape[1:], np.float64)
         out[:n] = a
-        return torch.as_tensor(out, device=device)
+        return out
 
     mask = np.zeros(max_samples, bool)
     mask[:n] = True
-    return ekf_mod.ImuPacket(
-        time=pad(times),
-        gyro=pad(np.asarray(gyros, np.float64).reshape(n, 3)),
-        acc=pad(np.asarray(accs, np.float64).reshape(n, 3)),
-        mask=torch.as_tensor(mask, device=device),
-    )
+    return ekf_mod.ImuPacket(*to_device(
+        [pad(times), pad(np.asarray(gyros, np.float64).reshape(n, 3)),
+         pad(np.asarray(accs, np.float64).reshape(n, 3)), mask], device))

@@ -17,10 +17,11 @@ On the card (`csrc/nn_bruteforce.cu`) most pairs go through a cheaper
 filter, a = d^2 - |q|^2 up to rounding (three FMAs), and only groups whose
 filter minimum reaches a query's threshold are re-computed with the exact
 expression; `filter_threshold` mirrors that threshold, whose margin is
-proved in the kernel's header, for the tests. A NaN pool entry never wins
-in the kernel and hides nothing; the plain version (and the JAX kernel)
-skip the whole chunk (tile) that holds it, so pools with NaN entries lie
-outside the bit-equal contract (`pool_from_map` writes +inf).
+proved in the kernel's header, for the tests. A NaN pool entry (its d^2
+NaN) never wins and hides nothing, in the kernel and in the plain version
+alike, so the two agree bit for bit on pools with NaN entries too. The JAX
+kernel skips the whole 8192-entry tile that holds one; `pool_from_map`
+writes +inf, never NaN.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def nn_bruteforce_plain(queries: torch.Tensor, pool: torch.Tensor,
     """Plain PyTorch version of K6: the pool in `chunk`-column steps (a whole
     N x M distance matrix would not fit at the path's shape), each step's
     first minimum, merged across steps by strict `<` so the earlier index
-    wins."""
+    wins. A NaN d^2 counts as +inf: it never wins and hides no entry."""
     q = queries.to(F32)
     n, m = q.shape[0], pool.shape[1]
     best = torch.full((n,), float("inf"), dtype=F32, device=q.device)
@@ -97,7 +98,8 @@ def nn_bruteforce_plain(queries: torch.Tensor, pool: torch.Tensor,
         dx = p[0][None, :] - qx
         dy = p[1][None, :] - qy
         dz = p[2][None, :] - qz
-        mn, first = voxel_map.argmin_first(dx * dx + dy * dy + dz * dz)
+        d2 = dx * dx + dy * dy + dz * dz
+        mn, first = voxel_map.argmin_first(torch.where(torch.isnan(d2), float("inf"), d2))
         better = mn < best
         best = torch.where(better, mn, best)
         best_idx = torch.where(better, first + start, best_idx)

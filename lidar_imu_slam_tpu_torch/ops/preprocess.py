@@ -159,16 +159,129 @@ def preprocess_scan(raw: RawScan, cfg: LidarConfig) -> Scan:
     )
 
 
+def segment_ids(scan: Scan, num_segments: int) -> torch.Tensor:
+    """Equal-count segment index per sorted point (JAX preprocess.py:201;
+    reference split_clouds, frame.cpp:53-99: cut when count hits
+    (cut+1)*size/num_segments)."""
+    rank = torch.cumsum(scan.mask.to(torch.int32), dim=-1) - 1
+    valid = torch.clamp(torch.sum(scan.mask.to(torch.int32)), min=1)
+    seg = torch.clamp((rank * num_segments) // valid, 0, num_segments - 1)
+    return torch.where(scan.mask, seg, num_segments - 1).to(torch.int32)
+
+
+def split_scan(scan: Scan, num_segments: int) -> list[Scan]:
+    """Split a preprocessed scan into equal-count time segments (JAX
+    preprocess.py:212; reference split_clouds, frame.cpp:53-99: each
+    segment is processed as an independent frame with its own normalized
+    timestamps).
+
+    Returns a list of `Scan`s sharing the padded shape, each masking only its
+    segment's points, with per-segment tau in [0, 1] and segment t_begin/t_end.
+    """
+    if num_segments <= 1:
+        return [scan]
+    seg = segment_ids(scan, num_segments)
+    inf = torch.full_like(scan.rel_t, float("inf"))
+    zero = torch.zeros_like(scan.rel_t)
+    out = []
+    for s in range(num_segments):
+        m = scan.mask & (seg == s)
+        t0 = torch.amin(torch.where(m, scan.rel_t, inf))
+        t0 = torch.where(torch.isfinite(t0), t0, 0.0)
+        rel = torch.where(m, scan.rel_t - t0, zero)
+        span = torch.amax(torch.where(m, rel, zero))
+        tau = (rel / torch.where(span > 0, span, 1.0)).to(torch.float32)
+        out.append(Scan(
+            xyz=scan.xyz,
+            tau=tau,
+            rel_t=rel,
+            mask=m,
+            t_begin=scan.t_begin + t0,
+            t_end=scan.t_begin + t0 + torch.where(torch.any(m), span, 0.0),
+        ))
+    return out
+
+
+def split_scan_compact(scan: Scan, num_segments: int) -> list[Scan]:
+    """Equal-count frame split into COMPACT (ceil(N/k),)-shaped segments
+    (JAX preprocess.py:246). The scan is time-sorted with padding at the
+    tail, so each segment is a contiguous run of it: one window of static
+    length ceil(N/k) at a start that stays on the device (an index gather
+    at `arange + start`, JAX's `lax.dynamic_slice`); the step then runs at
+    segment shape and costs ~1/k of a full step.
+
+    Returns a list of k `Scan`s of shape (ceil(N/k),) with per-segment tau
+    in [0, 1] and segment t_begin/t_end.
+    """
+    if num_segments <= 1:
+        return [scan]
+    n = scan.mask.shape[0]
+    seg_len = -(-n // num_segments)  # ceil: count can exceed floor(n/k)
+    v = torch.sum(scan.mask.to(torch.int64))
+    idx = torch.arange(seg_len, device=scan.mask.device)
+    zero = torch.zeros(seg_len, dtype=scan.rel_t.dtype, device=scan.rel_t.device)
+    out = []
+    for s in range(num_segments):
+        start = (s * v) // num_segments
+        count = ((s + 1) * v) // num_segments - start
+        # the window is clamped to fit (as dynamic_slice clamps its start);
+        # the segment's first point lies `off` into it
+        real_start = torch.clamp(start, max=n - seg_len)
+        off = start - real_start
+        m = (idx >= off) & (idx < off + count)
+        rows = idx + real_start
+        xyz_s = torch.index_select(scan.xyz, 0, rows)
+        rel_s = torch.index_select(scan.rel_t, 0, rows)
+        first = torch.index_select(rel_s, 0, torch.clamp(off, 0, seg_len - 1).reshape(1))[0]
+        t0 = torch.where(count > 0, first, 0.0)
+        rel = torch.where(m, rel_s - t0, zero)
+        span = torch.amax(torch.where(m, rel, zero))
+        tau = (rel / torch.where(span > 0, span, 1.0)).to(torch.float32)
+        out.append(Scan(
+            xyz=torch.where(m[:, None], xyz_s, 0.0),
+            tau=tau,
+            rel_t=rel,
+            mask=m,
+            t_begin=scan.t_begin + t0,
+            t_end=scan.t_begin + t0 + span,
+        ))
+    return out
+
+
 def stack_raw_scans(raws) -> RawScan:
     """Stack raw scans (each as `pack_raw_scan` gives them) on a leading
     stream axis."""
     return RawScan(*(torch.stack(f) for f in zip(*raws)))
 
 
+def to_device(arrays, device: torch.device | str) -> list[torch.Tensor]:
+    """numpy arrays as tensors on `device`. On a CUDA device all of them go
+    up in ONE copy: packed into a pinned staging buffer, copied with
+    `non_blocking=True` and viewed back into their dtypes and shapes. A
+    copy from pageable memory waits for the work queued before it on the
+    stream (a host sync); this one does not, and PyTorch's pinned-memory
+    cache reuses the staging buffer only after its copy has landed. On the
+    CPU the arrays themselves, without a copy."""
+    if torch.device(device).type == "cpu":
+        return [torch.from_numpy(a) for a in arrays]
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // 16) * 16  # every view 16-byte aligned
+    staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host = staging.numpy()
+    for a, o in zip(arrays, offs):
+        host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = staging.to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a).dtype).view(a.shape)
+            for a, o in zip(arrays, offs)]
+
+
 def pack_raw_scan(xyz, time=None, ring=None, stamp=0.0,
                   max_points: int | None = None,
                   device: torch.device | str = "cuda") -> RawScan:
-    """Pad numpy-like arrays into a RawScan of tensors on `device`."""
+    """Pad numpy-like arrays into a RawScan of tensors on `device` (one
+    copy, `to_device`)."""
     xyz = np.asarray(xyz, dtype=np.float32)
     n = xyz.shape[0]
     cap = max_points if max_points is not None else n
@@ -178,16 +291,12 @@ def pack_raw_scan(xyz, time=None, ring=None, stamp=0.0,
     def pad(a, fill, dtype):
         out = np.full((cap,) + a.shape[1:], fill, dtype=dtype)
         out[:n] = a
-        return torch.from_numpy(out).to(device)
+        return out
 
     t = np.zeros((n,), np.float64) if time is None else np.asarray(time, np.float64)
     r = np.zeros((n,), np.int32) if ring is None else np.asarray(ring, np.int32)
     mask = np.zeros((cap,), bool)
     mask[:n] = True
-    return RawScan(
-        xyz=pad(xyz, 0.0, np.float32),
-        time=pad(t, 0.0, np.float64),
-        ring=pad(r, 0, np.int32),
-        mask=torch.from_numpy(mask).to(device),
-        stamp=torch.tensor(float(stamp), dtype=torch.float64, device=device),
-    )
+    return RawScan(*to_device(
+        [pad(xyz, 0.0, np.float32), pad(t, 0.0, np.float64), pad(r, 0, np.int32), mask,
+         np.asarray(stamp, np.float64)], device))

@@ -20,7 +20,11 @@ numpy arrays, built around a base pool (uniform in a 60 m box, 30% +inf):
 * all_inf: a pool with nothing finite (+inf and -inf coordinates);
 * huge: entries and queries beyond the filter's 2^60 range (3e18 m)
   beside ordinary ones;
-* offset: the scene 5 km from the origin, where |q|^2 dominates the margin.
+* offset: the scene 5 km from the origin, where |q|^2 dominates the margin;
+* nan_entries: 2% of the entries with a NaN coordinate, and for each of
+  the first queries a NaN entry just before its nearest entry (in the same
+  32-entry group) and another earlier in the pool: a NaN entry never wins
+  and hides nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 CASES = ("far", "near_ties", "slice_ties", "on_point", "nonfinite_queries", "all_inf", "huge",
-         "offset")
+         "offset", "nan_entries")
 
 
 def _base(rng, n, m, half=30.0):
@@ -90,6 +94,15 @@ def make(case: str, n: int, m: int, seed: int = 0):
         pool[pick] = big + rng.uniform(-1e12, 1e12, (len(pick), 3)).astype(np.float32)
         q[:few // 2] = big + rng.uniform(-1e12, 1e12, (few // 2, 3)).astype(np.float32)
         q[few // 2:few] = rng.uniform(-2e18, 2e18, (few - few // 2, 3)).astype(np.float32)
+    elif case == "nan_entries":
+        bad = rng.uniform(size=m) < 0.02
+        pool[bad, rng.integers(0, 3, int(bad.sum()))] = np.nan
+        for i in range(few):
+            early, near = _spread(rng, m - 1, 2)
+            near -= near % 32 == 31  # its nearest entry in the same group
+            pool[early] = np.nan
+            pool[near] = np.nan
+            pool[near + 1] = q[i] + np.float32(0.01) * (i % 5 + 1)
     else:  # offset
         centre = np.array([5000.0, -3000.0, 20.0], np.float32)
         pool = (pool + centre).astype(np.float32)

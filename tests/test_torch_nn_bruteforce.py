@@ -338,16 +338,39 @@ def test_filter_constants_mirror_the_kernel():
 
 
 def test_nan_pool_entry_hides_its_chunk():
-    """Pins an open fault (ROADMAP queue 3): a NaN pool entry hides the
-    entries around it, JAX's 8192-entry tile and the plain version's
-    32768-entry chunk alike, so the two disagree where the nearest entry
-    lies in another JAX tile of the same chunk. (`pool_from_map` writes
-    +inf, never NaN; the card kernel skips only the NaN entry.)"""
+    """A NaN pool entry hides nothing from the plain version (ROADMAP queue
+    3, fixed): its d^2 counts as +inf, the card kernel's per-entry rule.
+    On the queue's input (NaN at entry 100, the nearest entry 19,999 in the
+    same 32,768-entry chunk) it returns (0.01, 19,999), as JAX does there.
+    JAX's kernel skips the whole 8192-entry tile that holds a NaN entry, a
+    reference behaviour outside its contract (+inf for invalid entries):
+    with the nearest entry in the NaN's own tile, JAX finds an entry of
+    another tile, the port the nearest one."""
     m = 3 * jbf.MT
     pool = np.full((3, m), 50.0, np.float32)
     pool[:, 100] = np.nan
     pool[:, 19_999] = [0.1, 0.0, 0.0]
     q = np.zeros((jbf.QT, 3), np.float32)
+    d01 = np.float32(0.1) * np.float32(0.1)
     (d2_j, idx_j), (d2_t, idx_t) = _both(q, pool)
-    assert idx_j[0] == 19_999 and d2_j[0] == np.float32(0.1) * np.float32(0.1)
-    assert idx_t[0] == 0 and np.isinf(d2_t[0])
+    assert idx_t[0] == 19_999 and d2_t[0] == d01
+    assert idx_j[0] == 19_999 and d2_j[0] == d01
+    # the nearest entry in the NaN's own tile: JAX skips the tile
+    pool[:, 200] = [0.1, 0.0, 0.0]
+    pool[:, 19_999] = [0.2, 0.0, 0.0]
+    (d2_j, idx_j), (d2_t, idx_t) = _both(q, pool)
+    assert idx_t[0] == 200 and d2_t[0] == d01
+    assert idx_j[0] == 19_999 and d2_j[0] == np.float32(0.2) * np.float32(0.2)
+
+
+def test_nan_entries_case_finds_the_entry_beside_the_nan():
+    """The nan_entries case of tools/nn_cases.py: each of its first queries'
+    nearest entry lies right after a NaN entry of the same group, and the
+    plain version returns it."""
+    q, pool = nn_cases.make("nan_entries", 100, 3 * tbf.SLICE + 1234, seed=2)
+    d2, idx = tbf.nn_bruteforce_plain(torch.from_numpy(q), torch.from_numpy(pool))
+    idx = idx.numpy()[:32]
+    assert np.isnan(pool[:, idx - 1]).any(0).all()
+    assert (idx // 32 == (idx - 1) // 32).all()
+    np.testing.assert_allclose(np.sqrt(d2.numpy()[:32]),
+                               0.01 * (np.arange(32) % 5 + 1) * np.sqrt(3), rtol=1e-3)
