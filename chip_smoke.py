@@ -117,6 +117,39 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    records, ATE at most 0.12 m, the PLY files finite; then `--bag --lio`
    on a bag of 30 HDL-64E scans and their IMU (`tools/bag_writer.py`):
    exit 0, one pose a scan. Each with its seconds.
+16. backend: the loop-closure backend at full width — `config.kitti_64beam()`
+   (131,072-point scans, a 2^18-slot map with the f32 slab, the fast path
+   K1-K3) with `BackendConfig(enabled=True)` at its defaults (512
+   keyframes, 2048 edges, `auto` -> cg) but the verify thresholds (0.65 m,
+   150 correspondences: the defaults verified no loop here) — through
+   `OdometryRunner(cfg, device).run` over one closed circuit of 200
+   rolling-shutter HDL-64E scans (4 m/s, a ~12.7 m radius): the raw poses
+   bit-equal to the same runner without the backend, K2 / K3 once a scan,
+   K1 launched; at least one verified loop edge, `optimized_poses()`
+   finite, its mid-scan ATE at most 1.05 x the raw one + 1e-6; keyframes,
+   loop edges, optimizations, thin events, host reads per scan by call
+   site, each optimize()'s and each verification's host time. The
+   backend's last graph re-optimized with cg and dense on the card and on
+   the CPU (within 1e-8 m / rad), twice on the card (bit-equal, or the
+   difference printed), and the host reads of one optimize() counted;
+17. solvers: dense LM on a 128-keyframe loop (H 768 x 768 f64) and cg on
+   tests/test_backend_scale.py's 500-node double loop (512 / 1024), on the
+   card and on the CPU: graph_error < 1e-6, card vs CPU within 1e-8; host
+   clock, CUDA events and peak memory per call;
+18. oracle: tests/test_torch_classic.py's oracle drive (52 scans) on the
+   card through the classic f64 path against the port's numpy oracle copy
+   (`match_jax`): scans 0-7 under 1e-4 m / rad, max 5e-2 m, median 1e-3 m;
+19. profiling: `utils/profiling.device_trace` round three scans of the
+   phase-16 runner with `annotate` ranges: the trace names
+   `gn_cluster_kernel`, `pose_pre_kernel`, `pose_post_kernel` and every
+   range; `StageTimer.report()`;
+20. native: `host/native.py` builds (g++), packs three of the circuit's
+   scans like `preprocess_scan` on the card (masks equal, xyz 1e-6, rel_t
+   1e-9 + 1e-7 relative, test_native.py's bar), keeps the first point of a
+   voxel; its host time beside phase
+   13's pack;
+21. CLI: `--synthetic 40 --loop-closure` on the `kitti` preset: exit 0,
+   `<out>.optimized` with 40 poses.
 One step of each batched drive runs under
 `torch.cuda.set_sync_debug_mode("error")`: the batched step never waits
 for the device.
@@ -643,6 +676,12 @@ def _counting(counter):
     return stack
 
 
+def _sites(caught) -> collections.Counter:
+    """The host reads among the recorded warnings, by call site."""
+    return collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                               if "called a synchronizing" in str(w.message))
+
+
 def _reads_and_ops(run, n_scans=20) -> dict:
     """Host reads per scan by call site and aten ops dispatched per scan
     over `run(n_scans, counter)`, which counts its scan loop only (not its
@@ -653,8 +692,7 @@ def _reads_and_ops(run, n_scans=20) -> dict:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         run(n_scans, counter)
-    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "called a synchronizing" in str(w.message))
+    sites = _sites(caught)
     return dict(host_reads_per_scan=sum(sites.values()) / n_scans,
                 host_reads_by_site=dict(sites.most_common(8)),
                 ops_per_scan=counter.ops / n_scans,
@@ -1300,8 +1338,7 @@ def classic_slice_phase(dev, cfg64, raws, gt):
             _, _, _, it20, _, _ = run(20)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "called a synchronizing" in str(w.message))
+    sites = _sites(caught)
     syncs = sum(sites.values())
     _common.reset_launches()
     state, out, poses, iters, wall, step_ms = run(N_SCANS)
@@ -1686,8 +1723,7 @@ def _timed_run(make_runner, drive, launches=False):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     counts = dict(_common.LAUNCHES) if launches else None
-    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "called a synchronizing" in str(w.message))
+    sites = _sites(caught)
     return runner, wall, sites, counts
 
 
@@ -1841,6 +1877,7 @@ def runner_phase(dev, cfg, msgs, gt, direct):
     _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
              "runner: pose kernels did not run once per scan")
     _require(ate <= ATE_LIMIT_M, f"runner: ATE {ate:.4f} m above {ATE_LIMIT_M}")
+    return dict(reads_per_scan=sum(sites.values()) / n, pack_ms=float(np.mean(runner.pack_s)) * 1e3)
 
 
 def _imu_rows(gt):
@@ -1969,8 +2006,7 @@ def _cli_counted(args, dev) -> None:
     _require(rc == 0, f"cli.main {' '.join(args)}: exit {rc}")
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     n = summary["scans"]
-    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "called a synchronizing" in str(w.message))
+    sites = _sites(caught)
     print(f"cli {args[0]} {args[1]} in this process: {n / wall:.2f} scans/s (host clock, the "
           f"synthetic scans rendered on the way); p50 {summary['p50_step_ms']} ms p95 "
           f"{summary['p95_step_ms']} ms a step; host reads per scan {sum(sites.values()) / n:.2f} "
@@ -2020,6 +2056,490 @@ def cli_phase(dev, msgs, gt):
               f"{len(tum)} TUM lines")
         _require(summary["scans"] == n_bag and len(tum) == n_bag,
                  "cli --bag --lio: not one pose a scan")
+
+
+# ---------------------------------------------------------------------------
+# phases 16-21: the loop-closure backend, the solvers, the oracle, the
+# profiling helpers, the native packer and the CLI's --loop-closure
+# ---------------------------------------------------------------------------
+
+CIRCUIT_SCANS = 200  # phase 16: one closed circuit of HDL-64E scans
+CIRCUIT_SPEED = 4.0  # m/s, dt 0.1: 80 m round a ~12.7 m radius
+# BackendConfig's verify thresholds (0.3 m residual, 50 correspondences)
+# verified no loop on this circuit on the card: the three candidates
+# registered at 0.613-0.633 m rms over 5,408-5,727 correspondences, two
+# samplings of the same surfaces ~1 m apart (PERF.md). Only those
+# two fields change, to tests/test_online_backend.py's values.
+VERIFY_OVERRIDE = dict(verify_max_residual=0.65, verify_min_correspondences=150)
+
+
+def render_circuit():
+    """Phase 16's drive: 200 rolling-shutter HDL-64E scans (2.5-80 m) on one
+    closed circle, 4 m/s at dt 0.1 with a yaw rate of 2 pi / 199 a scan,
+    centred in `make_world(seed=0, n_points=600_000, extent=(40, 40, 12))`
+    (x in [-10, 40], y in [-40, 40]): host messages and the ground truth."""
+    from lidar_imu_slam_tpu_torch.host import synthetic
+
+    t0 = time.perf_counter()
+    n = CIRCUIT_SCANS
+    world = synthetic.make_world(seed=0, n_points=600_000, extent=(40.0, 40.0, 12.0))
+    yaw_rate = 2 * np.pi / (n - 1)
+    gt = synthetic.make_trajectory(n_poses=n, speed=CIRCUIT_SPEED, yaw_rate=yaw_rate,
+                                   dt=0.1, ramp=1)
+    radius = CIRCUIT_SPEED * 0.1 / yaw_rate
+    gt[:, :3, 3] += np.array([15.0, -radius, 0.0])  # centre (15, 0)
+    msgs = []
+    for i in range(n):
+        pts, rel = synthetic.render_scan_rolling(
+            world, gt[i], gt[min(i + 1, n - 1)], 0.1, POINTS_PER_SCAN, 2.5, 80.0,
+            noise=0.02, seed=1000 + i)
+        msgs.append({"xyz": pts, "time": i * 0.1 + rel, "stamp": i * 0.1})
+    print(f"backend: rendered the {n}-scan circuit (radius {radius:.2f} m, closing gap "
+          f"{np.linalg.norm(gt[-1, :3, 3] - gt[0, :3, 3]):.3f} m) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return msgs, gt
+
+
+def circuit_cfg(cfgmod, backend: bool = True):
+    """`config.kitti_64beam()` (131,072 points, a 2^18-slot map with the f32
+    slab, the fast path) with `BackendConfig(enabled=True)` at its defaults
+    (512 keyframes, 2048 edges, `auto` -> cg, 64 CG / 10 LM iterations,
+    chunk 8) but for the verify thresholds (`VERIFY_OVERRIDE`)."""
+    cfg = cfgmod.kitti_64beam()
+    if backend:
+        cfg = cfg.replace(backend=cfgmod.BackendConfig(enabled=True, **VERIFY_OVERRIDE))
+    return cfg
+
+
+def _pose_diff(a, b) -> tuple[float, float]:
+    """Max translation (m) and rotation (rad) difference of two pose stacks."""
+    dt = float(np.abs(a[..., :3, 3] - b[..., :3, 3]).max())
+    rel = np.swapaxes(a[..., :3, :3], -1, -2) @ b[..., :3, :3]
+    cos = np.clip((np.trace(rel, axis1=-2, axis2=-1) - 1.0) / 2.0, -1.0, 1.0)
+    # arccos loses precision near 0: the skew part's norm is the sine
+    skew = np.stack([rel[..., 2, 1] - rel[..., 1, 2], rel[..., 0, 2] - rel[..., 2, 0],
+                     rel[..., 1, 0] - rel[..., 0, 1]], -1) / 2.0
+    dr = float(np.arctan2(np.linalg.norm(skew, axis=-1), cos).max())
+    return dt, dr
+
+
+def _reads_of(fn):
+    """fn()'s result and the host reads it made, by call site."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, _sites(caught)
+
+
+def _graph_to(g, device):
+    from lidar_imu_slam_tpu_torch.models import backend as backend_mod
+
+    return backend_mod.PoseGraph(*(t.to(device) for t in g[:7]), num_nodes=g.num_nodes,
+                                 num_edges=g.num_edges)
+
+
+def backend_phase(dev, cfgmod, msgs, gt, runner_reads):
+    """Phase 16: `OdometryRunner(circuit_cfg, device).run` over the circuit
+    as host messages, beside the same runner without the backend. The raw
+    poses bit-equal, K2 / K3 once a scan and K1 launched; at least one
+    verified loop edge (j - i >= min_index_gap), `optimized_poses()`
+    finite, mid-scan ATE of the corrected trajectory at most 1.05 x the
+    raw one + 1e-6; host reads by call site, each optimize()'s and each
+    verification's host time. Then the backend's last graph re-optimized
+    with cg and dense on the card and on the CPU, twice on the card, and
+    the reads of one optimize() counted."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.host import keyframes
+    from lidar_imu_slam_tpu_torch.host import runner as runner_mod
+    from lidar_imu_slam_tpu_torch.models import backend as backend_mod
+
+    t_phase = time.perf_counter()
+    cfg = circuit_cfg(cfgmod)
+    bcfg = cfg.backend
+    n = len(msgs)
+    opt_s, verify_s, verified, graphs = [], [], [], []
+
+    class TimedBackend(keyframes.OnlineBackend):
+        def optimize(self):
+            t0 = time.perf_counter()
+            super().optimize()  # ends in the copy of the optimized poses
+            opt_s.append(time.perf_counter() - t0)
+
+    def timed_verify(*a, **kw):
+        t0 = time.perf_counter()
+        res = verify_pair(*a, **kw)  # the classic ICP: a host read an iteration
+        verify_s.append(time.perf_counter() - t0)
+        verified.append(res)  # read after the counted run
+        return res
+
+    def keep_graph(solver):
+        def run(g, *a, **kw):
+            out = solver(g, *a, **kw)
+            graphs.append((solver.__name__, g, out))
+            return out
+        return run
+
+    plain = runner_mod.OdometryRunner(circuit_cfg(cfgmod, backend=False), device=dev)
+    t0 = time.perf_counter()
+    plain.run(iter(msgs))
+    wall_plain = time.perf_counter() - t0
+
+    verify_pair = keyframes.verify_pair
+    patched = ((runner_mod, "OnlineBackend", TimedBackend),
+               (keyframes, "verify_pair", timed_verify),
+               (backend_mod, "optimize_cg", keep_graph(backend_mod.optimize_cg)),
+               (backend_mod, "optimize", keep_graph(backend_mod.optimize)))
+    kept = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patched]
+    try:
+        for owner, attr, repl in patched:
+            setattr(owner, attr, repl)
+        runner, wall, sites, launches = _timed_run(
+            lambda: runner_mod.OdometryRunner(cfg, device=dev), lambda r: r.run(iter(msgs)),
+            launches=True)
+    finally:
+        for owner, attr, orig in kept:
+            setattr(owner, attr, orig)
+
+    be = runner.backend
+    raw = np.stack(runner.poses)
+    same = np.array_equal(raw, np.stack(plain.poses))
+    opt = runner.optimized_poses()
+    ate_raw, ate_opt = _ate(raw, gt, shift=0.5), _ate(opt, gt, shift=0.5)
+    edges = [(i, j, be.kf_scan_idx[i], be.kf_scan_idx[j]) for i, j, _, _ in be.loop_edges]
+    print(f"backend: {n} scans in {wall:.1f} s with the backend ({n / wall:.2f} scans/s, host "
+          f"clock, the final optimize and fetch included), {wall_plain:.1f} s without "
+          f"({n / wall_plain:.2f} scans/s); raw poses bit-equal to the run without the "
+          f"backend: {same}")
+    print(f"backend: keyframes {len(be.kf_poses)}, loop edges {len(edges)} (keyframe i, j; "
+          f"scan i, j) {edges}, optimizations {be.num_optimizations}, thin events "
+          f"{be.thin_events}, dropped keyframes {be.dropped_keyframes}, candidates verified "
+          f"{len(verify_s)}")
+    print(f"backend: ATE (mid-scan) raw {ate_raw:.4f} m, corrected {ate_opt:.4f} m (bar "
+          f"{1.05 * ate_raw + 1e-6:.4f}); launches {launches}")
+    print(f"backend: host reads per scan {sum(sites.values()) / n:.2f} (phase 13's runner: "
+          f"{runner_reads:.2f}) by call site {dict(sites.most_common(10))}")
+    print("backend: optimize() host ms " + " ".join(f"{s * 1e3:.1f}" for s in opt_s))
+    print("backend: verification host ms " + " ".join(f"{s * 1e3:.1f}" for s in verify_s))
+    print("backend: verifications (residual rms m, correspondences, GN iterations; accepted "
+          f"under {bcfg.verify_max_residual} m with >= {bcfg.verify_min_correspondences}) "
+          + " ".join(f"({float(r.residual_rms):.3f}, {int(r.num_correspondences)}, "
+                     f"{int(r.iterations)})" for r in verified))
+    _require(same, "backend: the backend changed the raw odometry poses")
+    _require(launches["pose_pre"] == n and launches["pose_post"] == n,
+             "backend: K2 / K3 did not run once a scan")
+    _require(launches["fused_gn_carry"] > 0, "backend: K1 never launched")
+    _require(len(edges) >= 1, "backend: no loop edge verified")
+    _require(all(j - i >= bcfg.min_index_gap for i, j, _, _ in edges),
+             "backend: a loop edge closer than min_index_gap")
+    _require(np.isfinite(opt).all(), "backend: optimized_poses() not finite")
+    _require(ate_opt <= 1.05 * ate_raw + 1e-6,
+             f"backend: corrected ATE {ate_opt:.4f} m above 1.05 x raw {ate_raw:.4f} m")
+
+    # the last graph the backend optimized, three more ways
+    name, g, out = graphs[-1]
+    _require(name == "optimize_cg", f"backend: the auto solver ran {name}, not cg")
+    lm, cgi = bcfg.lm_iterations, bcfg.cg_iterations
+    card = {"cg": out.poses.cpu().numpy()}
+    card["dense"] = backend_mod.optimize(g, iterations=lm).poses.cpu().numpy()
+    g_cpu = _graph_to(g, "cpu")
+    t0 = time.perf_counter()
+    cpu = {"cg": backend_mod.optimize_cg(g_cpu, iterations=lm, cg_iterations=cgi).poses.numpy()}
+    t_cg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu["dense"] = backend_mod.optimize(g_cpu, iterations=lm).poses.numpy()
+    t_dense = time.perf_counter() - t0
+    k = g.num_nodes
+    for s in ("cg", "dense"):
+        dt, dr = _pose_diff(card[s][:k], cpu[s][:k])
+        print(f"backend: last graph ({k} nodes, {g.num_edges} edges) {s}: card vs CPU "
+              f"{dt:.3e} m / {dr:.3e} rad (tol 1e-8)")
+        _require(dt <= 1e-8 and dr <= 1e-8, f"backend: {s} on the card and the CPU disagree")
+    dt, dr = _pose_diff(card["cg"][:k], card["dense"][:k])
+    print(f"backend: last graph cg vs dense on the card {dt:.3e} m / {dr:.3e} rad; the CPU's "
+          f"cg {t_cg:.2f} s, dense {t_dense:.2f} s (host clock)")
+    again = {"cg": backend_mod.optimize_cg(g, iterations=lm, cg_iterations=cgi).poses.cpu().numpy(),
+             "dense": backend_mod.optimize(g, iterations=lm).poses.cpu().numpy()}
+    for s in ("cg", "dense"):
+        eq = np.array_equal(again[s], card[s])
+        diff = "" if eq else f"; max |d| {np.abs(again[s] - card[s]).max():.3e}"
+        print(f"backend: last graph {s} twice on the card: bit-equal {eq}{diff}")
+    for s, fn in (("cg", lambda: backend_mod.optimize_cg(g, iterations=lm, cg_iterations=cgi)),
+                  ("dense", lambda: backend_mod.optimize(g, iterations=lm))):
+        _, reads = _reads_of(lambda: fn().poses.cpu())
+        print(f"backend: host reads of one {s} optimize() and the copy of its poses: "
+              f"{sum(reads.values())} by call site {dict(reads)}")
+    del graphs
+    torch.cuda.synchronize()
+    print(f"backend: phase {time.perf_counter() - t_phase:.1f} s")
+    return cfg
+
+
+def _circle_graph_np(n, radius=10.0, yaw_err=0.006):
+    """A circle of n poses (truth) and its drifted odometry (a per-step yaw
+    error), tests/test_backend_scale.py's construction."""
+    gt = []
+    for k in range(n):
+        th = 2 * np.pi * k / (n - 1)
+        T = np.eye(4)
+        c, s = np.cos(th), np.sin(th)
+        T[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        T[:3, 3] = [radius * np.sin(th), radius * (1 - np.cos(th)), 0.0]
+        gt.append(T)
+    gt = np.stack(gt)
+    drift = np.eye(4)
+    cd, sd = np.cos(yaw_err), np.sin(yaw_err)
+    drift[:3, :3] = [[cd, -sd, 0], [sd, cd, 0], [0, 0, 1]]
+    drift[:3, 3] = [0.015, 0, 0]
+    drifted = [gt[0]]
+    for k in range(1, n):
+        drifted.append(drifted[-1] @ np.linalg.inv(gt[k - 1]) @ gt[k] @ drift)
+    return gt, np.stack(drifted)
+
+
+def solver_phase(dev):
+    """Phase 17: the solvers at their sizes, on the card and on the CPU.
+    Dense: a 128-keyframe loop (H 768 x 768 f64), true chain and loop
+    measurements from a drifted start. cg: tests/test_backend_scale.py's
+    500-node double loop in a 512 / 1024 graph with three loop edges.
+    BackendConfig's iterations (10 LM, 64 CG). graph_error < 1e-6 on both
+    devices, card and CPU poses within 1e-8; per call: host clock (ending in
+    a synchronize), CUDA events, peak device memory, aten ops dispatched."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import backend as backend_mod
+
+    gt, drifted = _circle_graph_np(128)
+    graphs = {}
+    g = backend_mod.from_chain(gt, 128, 256, device="cpu")
+    g = backend_mod.add_edge(g, 0, 127, np.linalg.inv(gt[0]) @ gt[-1], 50.0)
+    graphs["dense"] = g._replace(poses=torch.as_tensor(drifted))
+    n = 500
+    th = np.linspace(0, 4 * np.pi, n)
+    poses = np.broadcast_to(np.eye(4), (n, 4, 4)).copy()
+    poses[:, 0, 3] = 30 * np.sin(th)
+    poses[:, 1, 3] = 30 * (1 - np.cos(th))
+    g = backend_mod.from_chain(poses, 512, 1024, device="cpu")
+    for k in (10, 100, 200):
+        g = backend_mod.add_edge(g, k, k + n // 2,
+                                 np.linalg.inv(poses[k]) @ poses[k + n // 2], 5.0)
+    graphs["cg"] = g
+    solve = {"dense": lambda g: backend_mod.optimize(g, iterations=10),
+             "cg": lambda g: backend_mod.optimize_cg(g, iterations=10, cg_iterations=64)}
+    for name, g_cpu in graphs.items():
+        g_dev = _graph_to(g_cpu, dev)
+        e0 = float(backend_mod.graph_error(g_dev))
+        solve[name](g_dev)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        host_ms, ev_ms = [], []
+        for _ in range(3):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            out = solve[name](g_dev)
+            ev1.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(ev0.elapsed_time(ev1))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        t0 = time.perf_counter()
+        out_cpu = solve[name](g_cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err_dev, err_cpu = float(backend_mod.graph_error(out)), float(
+            backend_mod.graph_error(out_cpu))
+        k = g_cpu.num_nodes
+        dt, dr = _pose_diff(out.poses.cpu().numpy()[:k], out_cpu.poses.numpy()[:k])
+        print(f"solver {name}: {k} nodes / {g_cpu.num_edges} edges (H {6 * g_cpu.poses.shape[0]}"
+              f"^2 f64 for dense): card {np.median(host_ms):.1f} ms host clock, "
+              f"{np.median(ev_ms):.1f} ms CUDA events (median of 3), peak {peak:.1f} MiB above "
+              f"the inputs; CPU {cpu_ms:.1f} ms; graph_error {e0:.3e} -> {err_dev:.3e} card, "
+              f"{err_cpu:.3e} CPU; card vs CPU {dt:.3e} m / {dr:.3e} rad")
+        counter = _op_counter()
+        with counter:
+            solve[name](g_dev)
+        print(f"solver {name}: aten ops dispatched by one solve {counter.ops} "
+              f"({counter.compute} not views)")
+        _require(err_dev < 1e-6 and err_cpu < 1e-6, f"solver {name}: graph_error not < 1e-6")
+        _require(dt <= 1e-8 and dr <= 1e-8, f"solver {name}: card and CPU disagree")
+
+
+def oracle_phase(dev):
+    """Phase 18: tests/test_torch_classic.py::test_port_tracks_the_oracle's
+    drive on the card through the classic f64 path, against the port's
+    copy of the numpy oracle in `match_jax` mode, with its bars (scans 0-7
+    under 1e-4 m / rad, max under 5e-2 m, median under 1e-3 m)."""
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops import preprocess
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.validation import oracle as oracle_mod
+
+    t0 = time.perf_counter()
+    cfg = cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(num_scan_lines=16, max_points=4096, min_range=1.0,
+                                 max_range=40.0),
+        map=cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 14,
+                             neighborhood=27),
+        icp=cfgmod.IcpConfig(deskew=False, max_map_points=4096, max_source_points=2048,
+                             max_iterations=100),
+    )
+    world = synthetic.make_world(seed=3, n_points=120_000, extent=(70.0, 24.0, 8.0))
+    gt = synthetic.make_trajectory(n_poses=52, speed=2.0, yaw_rate=0.02, dt=0.1)
+    ocfg = oracle_mod.OracleConfig.match_jax(
+        voxel_size=cfg.map.voxel_size, max_range=cfg.map.max_range,
+        max_points_per_voxel=cfg.map.max_points_per_voxel,
+        initial_threshold=cfg.icp.initial_threshold, min_motion_th=cfg.icp.min_motion_th,
+        max_iterations=cfg.icp.max_iterations,
+        estimation_threshold=cfg.icp.estimation_threshold)
+    ocfg.min_correspondences = cfg.icp.min_correspondences
+    ocfg.max_step_norm = cfg.icp.max_step_norm
+    ocfg.max_model_deviation = cfg.icp.max_model_deviation
+    odo = oracle_mod.ReferenceOdometry(ocfg)
+    state = kiss_icp.init_state(cfg, dev)
+    _common.reset_launches()
+    rot, trans = [], []
+    for i, pose in enumerate(gt):
+        pts = synthetic.render_scan(world, pose, 3000, 1.0, 40.0, noise=0.01, seed=100 + i)
+        scan = preprocess.preprocess_scan(preprocess.pack_raw_scan(
+            pts, stamp=i * 0.1, max_points=4096, device=dev), cfg.lidar)
+        state, out = kiss_icp.register_frame_step(state, scan, cfg)
+        P = out.pose.cpu().numpy()
+        O = odo.register_frame(scan.xyz.cpu().numpy()[scan.mask.cpu().numpy()].astype(np.float64))
+        D = oracle_mod.inv(P) @ O
+        rot.append(np.linalg.norm(oracle_mod.so3_log(D[:3, :3])))
+        trans.append(np.linalg.norm(D[:3, 3]))
+    rot, trans = np.asarray(rot), np.asarray(trans)
+    print(f"oracle: card (classic f64) vs the numpy oracle (match_jax), 52 scans: scans 0-7 "
+          f"max {trans[:8].max():.3e} m / {rot[:8].max():.3e} rad (bar 1e-4), max "
+          f"{trans.max():.3e} m (bar 5e-2), median {np.median(trans):.3e} m (bar 1e-3); "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(trans[:8].max() < 1e-4 and rot[:8].max() < 1e-4, "oracle: early scans disagree")
+    _require(trans.max() < 5e-2 and np.median(trans) < 1e-3, "oracle: the drive disagrees")
+    _require(not any(_common.LAUNCHES.values()), "oracle: the classic path launched a kernel")
+
+
+def profiling_phase(dev, cfg, msgs):
+    """Phase 19: `utils/profiling.device_trace` around three scans of the
+    phase-16 runner (the backend on), with `annotate` ranges round the run,
+    each step and each optimize(); the exported trace must name the fast
+    path's kernels and every range. StageTimer's report of the same."""
+    import tempfile
+
+    from lidar_imu_slam_tpu_torch.host import keyframes
+    from lidar_imu_slam_tpu_torch.host import runner as runner_mod
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.utils import profiling
+
+    timer = profiling.StageTimer()
+    step, optimize = kiss_icp.register_frame_step, keyframes.OnlineBackend.optimize
+
+    def traced_step(*a, **kw):
+        with profiling.annotate("kiss_icp.step"), timer.stage("kiss_icp.step"):
+            return step(*a, **kw)
+
+    def traced_optimize(self):
+        with profiling.annotate("backend.optimize"), timer.stage("backend.optimize"):
+            return optimize(self)
+
+    ranges = ("runner.run", "kiss_icp.step", "backend.optimize")
+    kernels = ("gn_cluster_kernel", "pose_pre_kernel", "pose_post_kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        kiss_icp.register_frame_step = traced_step
+        keyframes.OnlineBackend.optimize = traced_optimize
+        try:
+            r = runner_mod.OdometryRunner(cfg, device=dev)
+            t0 = time.perf_counter()
+            with profiling.device_trace(tmp) as prof:
+                with profiling.annotate("runner.run"), timer.stage("runner.run"):
+                    r.run(iter(msgs[:3]))
+            wall = time.perf_counter() - t0
+        finally:
+            kiss_icp.register_frame_step = step
+            keyframes.OnlineBackend.optimize = optimize
+        with open(os.path.join(tmp, "trace.json")) as f:
+            trace = json.load(f)
+        size = os.path.getsize(os.path.join(tmp, "trace.json"))
+    names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+    cats = collections.Counter(e.get("cat", "") for e in trace.get("traceEvents", []))
+    found = {k: sum(k in nm for nm in names) for k in kernels + ranges}
+    device_total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    print(f"profiling: device_trace of 3 scans with the backend, {wall:.2f} s with the trace; "
+          f"trace {size / 1e6:.1f} MB, {len(names)} events by category "
+          f"{dict(cats.most_common(6))}; events naming each kernel / range {found}; "
+          f"self device time in key_averages {device_total / 1e3:.3f} ms")
+    print("profiling: StageTimer\n" + timer.report())
+    missing = [k for k, c in found.items() if c == 0]
+    _require(not missing, f"profiling: the trace names no {missing}")
+
+
+def native_phase(dev, cfg, msgs, runner_pack_ms):
+    """Phase 20: the native packer (`host/native.py`, built by g++ into the
+    port's build directory) on three HDL-64E scans against the port's
+    `preprocess_scan` on the card (masks equal, xyz within 1e-6, rel_t
+    within tests/test_native.py's bar), `voxel_downsample_native`'s
+    first-wins rule, and the
+    pack's host time beside phase 13's runner pack."""
+    from lidar_imu_slam_tpu_torch.host import native
+    from lidar_imu_slam_tpu_torch.ops import preprocess
+
+    t0 = time.perf_counter()
+    _require(native.available(), "native: the scan packer did not build (g++)")
+    print(f"native: built or found {os.path.relpath(native._LIB_PATH)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pack_ms, worst_xyz, worst_rel = [], 0.0, 0.0
+    for m in msgs[:3]:
+        t0 = time.perf_counter()
+        n_xyz, _, n_rel, n_mask, tb, te = native.pack_scan_native(
+            m["xyz"], m["time"], None, m["stamp"], cfg.lidar)
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+        scan = preprocess.preprocess_scan(preprocess.pack_raw_scan(
+            m["xyz"], time=m["time"], stamp=m["stamp"], max_points=cfg.lidar.max_points,
+            device=dev), cfg.lidar)
+        mask = scan.mask.cpu().numpy()
+        _require(np.array_equal(n_mask, mask), "native: masks differ from preprocess_scan's")
+        worst_xyz = max(worst_xyz, float(np.abs(n_xyz[mask] - scan.xyz.cpu().numpy()[mask]).max()))
+        # tests/test_native.py's assert_allclose bar: 1e-9 plus 1e-7 relative
+        # (the sorted path carries the time in f32, ~4e-9 s at 0.1 s, as in JAX)
+        rel = scan.rel_t.cpu().numpy()[mask]
+        worst_rel = max(worst_rel, float((np.abs(n_rel[mask] - rel) / (1e-9 + 1e-7 * np.abs(rel))).max()))
+    xyz = np.array([[0.7, 0.7, 0.7], [0.1, 0.1, 0.1], [1.5, 0.1, 0.1]], np.float32)
+    ds = native.voxel_downsample_native(xyz, 1.0, 8)
+    print(f"native: 3 HDL-64E scans: masks equal, max |d xyz| {worst_xyz:.3e} (tol 1e-6), "
+          f"rel_t at {worst_rel:.3f} of its bar (1e-9 + 1e-7 |rel_t|) against preprocess_scan "
+          f"on the card; pack "
+          f"host ms {' '.join(f'{t:.2f}' for t in pack_ms)} (the runner's pack + upload + "
+          f"preprocess, phase 13: {runner_pack_ms:.3f} ms); voxel_downsample first wins: "
+          f"{len(ds) == 2 and np.array_equal(ds[0], xyz[0])}")
+    _require(worst_xyz <= 1e-6 and worst_rel <= 1.0, "native: the pack disagrees")
+    _require(len(ds) == 2 and np.array_equal(ds[0], xyz[0]), "native: first-wins broken")
+
+
+def cli_loop_closure_phase():
+    """Phase 21: `--synthetic 40 --loop-closure` on the `kitti` preset: exit
+    0 and `<out>.optimized` with 40 poses."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        summary, wall = _cli(["--synthetic", "40", "--loop-closure", "--out", "traj.tum"], tmp)
+        raw = np.loadtxt(os.path.join(tmp, "traj.tum"))
+        opt = np.loadtxt(os.path.join(tmp, "traj.tum.optimized"))
+    print(f"cli --synthetic 40 --loop-closure: {wall:.1f} s with the process start; summary "
+          f"{summary}; {len(opt)} optimized poses, max |d t| to the raw "
+          f"{np.abs(opt[:, 1:4] - raw[:, 1:4]).max():.3e} m")
+    _require(summary["scans"] == 40 and opt.shape == (40, 8) and np.isfinite(opt).all(),
+             "cli --loop-closure: not 40 optimized poses")
 
 
 def _build_kernels() -> None:
@@ -2164,10 +2684,18 @@ def main(argv=None) -> int:
     launches["fused_gn_batched"] = multi_stream_phase(dev, cfg, raws, gt)["fused_gn_batched"]
     del raws
     monte_carlo_phase(dev, cfgmod)
-    runner_phase(dev, cfg, msgs, gt, fast)
+    runner_nums = runner_phase(dev, cfg, msgs, gt, fast)
     lio_runner_phase(dev, cfg, msgs, gt, lio)
     cli_phase(dev, msgs, gt)
     del msgs
+    circuit, circuit_gt = render_circuit()
+    cfg_backend = backend_phase(dev, cfgmod, circuit, circuit_gt, runner_nums["reads_per_scan"])
+    solver_phase(dev)
+    oracle_phase(dev)
+    profiling_phase(dev, cfg_backend, circuit)
+    native_phase(dev, cfg_backend, circuit, runner_nums["pack_ms"])
+    del circuit
+    cli_loop_closure_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _require(k["launches"] > 0, f"kernel {k['name']} never launched on its path")

@@ -186,6 +186,8 @@ def main(argv=None, device: torch.device | str = "cuda") -> int:
     if args.save_clouds:
         map_state = runner.state.map if hasattr(runner.state, "map") else runner.state.odo.map
         cloud_io.export_map_ply(f"{args.save_clouds}/local_map.ply", map_state, cfg.map)
+    if args.loop_closure and runner.backend is not None:
+        traj.write_tum(f"{args.out}.optimized", runner.stamps, list(runner.optimized_poses()))
 
     summary = {
         "scans": len(runner.poses),

@@ -18,7 +18,10 @@ is a view of them. Host reads that remain: the step's own (one per ICP
 round on the fast path, one per GN iteration on the classic one, LIO's
 branch read, the compaction check under `auto_rebuild`), two map
 scalars every 64 scans (`_maybe_rebuild`), and one pose read every
-`sync_every` scans when asked.
+`sync_every` scans when asked. With the loop-closure backend
+(`cfg.backend.enabled`), one pose copy every `cfg.backend.chunk` scans,
+one copy of the new keyframes' keypoints, and the backend's own reads
+when it verifies loops and optimizes (`host/keyframes.py`).
 
 Checkpoints are `torch.save` files: the state's tensors in a dict keyed
 by field path, plus the step. The JAX package's orbax checkpoints are not
@@ -43,6 +46,7 @@ from ..ops import voxel_map
 from ..ops.preprocess import pack_raw_scan, preprocess_scan, split_scan_compact
 from ..utils import trajectory
 from ..utils.metrics import MetricsLog, StepTimer
+from .keyframes import OnlineBackend
 from .stream_sync import StreamSynchronizer
 
 F64 = torch.float64
@@ -114,10 +118,6 @@ class OdometryRunner:
 
     def __init__(self, cfg: PipelineConfig, checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0, device: torch.device | str = "cuda"):
-        if cfg.backend.enabled:
-            raise NotImplementedError(
-                "the loop-closure backend (cfg.backend.enabled) is not ported yet: "
-                "ROADMAP queue 1 item 4 (models/backend.py, host/keyframes.py)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.state = self._init_state()
@@ -128,6 +128,37 @@ class OdometryRunner:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self._seg_cfg: Optional[PipelineConfig] = None
+        self.backend: Optional[OnlineBackend] = (
+            OnlineBackend(cfg, self.device) if cfg.backend.enabled else None)
+        self._chunk: list = []  # (scan index, pose, keypoints, mask) on the device
+
+    def _backend_observe(self, i: int, out, final: bool = False) -> None:
+        """Feed the online backend in chunks of `cfg.backend.chunk` scans:
+        the open chunk keeps its poses and keypoints on the device; when it
+        closes, its poses come to the host in one copy (the backend copies
+        the keypoints of the scans it selects as keyframes) and the chunk
+        is released. `final` flushes the last chunk and optimizes once
+        more."""
+        if self.backend is None:
+            return
+        if out is not None:
+            self._chunk.append((i, out.pose, out.keypoints, out.keypoints_mask))
+        if self._chunk and (len(self._chunk) >= self.cfg.backend.chunk or final):
+            idxs = [c[0] for c in self._chunk]
+            poses = torch.stack([c[1] for c in self._chunk]).cpu().numpy()
+            self.backend.observe_chunk(idxs, poses, [c[2] for c in self._chunk],
+                                       [c[3] for c in self._chunk])
+            self._chunk = []
+        if final and self.backend.kf_poses:
+            self.backend.optimize()
+
+    def optimized_poses(self) -> np.ndarray:
+        """The loop-closure-corrected trajectory (the raw odometry poses when
+        the backend is off or found no loop)."""
+        poses = np.stack(self.poses)
+        if self.backend is None:
+            return poses
+        return self.backend.correct(poses)
 
     def _init_state(self):
         return kiss_icp.init_state(self.cfg, self.device)
@@ -234,10 +265,12 @@ class OdometryRunner:
                     checkpoint_save(self.checkpoint_dir, self.state, i + 1)
                 if progress:
                     progress(i, out)
+                self._backend_observe(i, out)
                 self._maybe_rebuild(i)
                 i += 1
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
+        self._backend_observe(i, None, final=True)
         self._collect(kept, host, fields)
 
     def _collect(self, kept: list, host: list, fields: tuple) -> None:

@@ -12,7 +12,8 @@ leaf, as the JAX package's `init_batched_state` makes them.
 The LIO state (`models.lio.LioState`: the odometry state, the EKF state,
 the IMU initialization and the LIO bookkeeping) and the IMU packet cross
 the same way (`lio_state_from_numpy`, `lio_state_to_numpy`,
-`imu_packet_from_numpy`).
+`imu_packet_from_numpy`). So does the backend's pose graph
+(`models.backend.PoseGraph`: `pose_graph_from_numpy`, `pose_graph_to_numpy`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from .models.ekf import EkfState, ImuPacket
 from .models.kiss_icp import KissState
+from .models.backend import PoseGraph
 from .models.lio import LioState
 from .ops.imu import ImuInitState
 from .ops.icp import ThresholdState
@@ -121,3 +123,17 @@ def lio_state_to_numpy(state: LioState) -> LioState:
         imu_init=ImuInitState(*(_n(t) for t in state.imu_init)),
         **{f: _n(getattr(state, f)) for f in LioState._fields[3:]},
     )
+
+
+def pose_graph_from_numpy(tree, device: torch.device | str = "cuda") -> PoseGraph:
+    """Port pose graph from the numpy leaves of a JAX PoseGraph (its counts
+    become host ints)."""
+    return PoseGraph(*(_plain(getattr(tree, f), device) for f in PoseGraph._fields[:7]),
+                     num_nodes=int(tree.num_nodes), num_edges=int(tree.num_edges))
+
+
+def pose_graph_to_numpy(g: PoseGraph) -> PoseGraph:
+    """The port's pose graph with numpy leaves in the JAX field order (the
+    counts as i32 scalars, as JAX keeps them)."""
+    return PoseGraph(*(_n(getattr(g, f)) for f in PoseGraph._fields[:7]),
+                     num_nodes=np.int32(g.num_nodes), num_edges=np.int32(g.num_edges))

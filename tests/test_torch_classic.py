@@ -11,7 +11,8 @@ against JAX's unrolled one, sums in another order); `icp_registration` and
 its unrolled schedule: equal iteration counts, poses 1e-9. Whole steps:
 shared-state `register_frame` 1e-6 m / 1e-6 rad, a free drive 5e-3 m (the
 fast path's bar, tests/test_torch_kiss_icp.py), the batched xla step per
-stream against `jax.vmap` likewise. Against the oracle (`match_jax` mode)
+stream against `jax.vmap` likewise. Against the oracle (the port's copy,
+`lidar_imu_slam_tpu_torch/validation/oracle.py`, in `match_jax` mode)
 the bars of tests/test_trajectory_parity.py: first 8 scans 1e-4, median
 1e-3, max 5e-2.
 """
@@ -32,7 +33,6 @@ from lidar_imu_slam_tpu.ops import preprocess as jpre
 from lidar_imu_slam_tpu.ops import voxel_map as jvm
 from lidar_imu_slam_tpu.ops.preprocess import Scan as JScan
 from lidar_imu_slam_tpu.parallel import streams as jstreams
-from lidar_imu_slam_tpu.validation import oracle as oracle_mod
 from lidar_imu_slam_tpu_torch import config as tcfg
 from lidar_imu_slam_tpu_torch import interop
 from lidar_imu_slam_tpu_torch.models import ekf as tekf
@@ -44,6 +44,7 @@ from lidar_imu_slam_tpu_torch.ops import lie as tlie
 from lidar_imu_slam_tpu_torch.ops import preprocess as tpre
 from lidar_imu_slam_tpu_torch.ops import voxel_map as tvm
 from lidar_imu_slam_tpu_torch.parallel import streams as tstreams
+from lidar_imu_slam_tpu_torch.validation import oracle as oracle_mod
 
 torch.set_num_threads(1)
 

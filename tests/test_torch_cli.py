@@ -8,8 +8,9 @@ package's, on the CPU (`main(argv, device="cpu")`):
 * `--save-clouds` (the port's test_cloud_io.py::test_cli_save_clouds);
 * `--bag f --lio` on a bag written by `tools/bag_writer.py`: one pose a
   scan, the IMU branch after static init;
-* `--loop-closure` raises, naming ROADMAP queue 1 item 4;
-* no fallback and no JAX: every module this slice adds imports with
+* `--loop-closure` runs the backend and writes `<out>.optimized`;
+* no fallback and no JAX: every module of the port's runners, CLI and
+  backend (and the oracle, profiling and native packer) imports with
   `jax` and `lidar_imu_slam_tpu` blocked, and `main` without a device
   targets the card, which this box does not have.
 """
@@ -37,7 +38,9 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW_MODULES = ("cli", "config_io", "host.runner", "host.stream_sync", "host.adversarial",
                "host.kitti", "host.rosbag", "utils.metrics", "utils.cloud_io",
-               "utils.trajectory", "ops.preprocess", "tools.bag_writer")
+               "utils.trajectory", "ops.preprocess", "tools.bag_writer",
+               "models.backend", "host.keyframes", "validation", "validation.oracle",
+               "utils.profiling", "host.native", "interop")
 
 
 def _small_yaml(tmp_path, extra=""):
@@ -126,10 +129,23 @@ def test_cli_bag_lio(tmp_path, capsys):
     assert not any(r["imu_overflow"] for r in recs)
 
 
-def test_cli_loop_closure_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        tcli.main(["--synthetic", "3", "--preset", "default", "--config",
-                   _small_yaml(tmp_path), "--loop-closure"], device="cpu")
+def test_cli_loop_closure_writes_optimized(tmp_path, capsys):
+    """`--loop-closure` runs the backend (a keyframe every 0.1 m, an
+    optimization every 2) and writes `<out>.optimized` beside `<out>`: one
+    TUM line a scan, the same stamps; with no loop on this straight drive
+    the correction is the identity up to the rotations' re-projection."""
+    cfg = _small_yaml(tmp_path, "backend:\n  keyframe_dist: 0.1\n  optimize_every: 2\n"
+                                "  chunk: 2\n")
+    out = tmp_path / "traj.tum"
+    rc = tcli.main(["--synthetic", "12", "--preset", "default", "--config", cfg,
+                    "--loop-closure", "--out", str(out)], device="cpu")
+    assert rc == 0 and _summary(capsys.readouterr().out)["scans"] == 12
+    raw = np.loadtxt(out)
+    opt = np.loadtxt(str(out) + ".optimized")
+    assert raw.shape == opt.shape == (12, 8)
+    np.testing.assert_array_equal(opt[:, 0], raw[:, 0])
+    np.testing.assert_allclose(opt[:, 1:4], raw[:, 1:4], atol=1e-9)
+    np.testing.assert_allclose(np.abs(opt[:, 4:]), np.abs(raw[:, 4:]), atol=1e-6)
 
 
 def test_cli_defaults_to_the_card(tmp_path):

@@ -13,15 +13,16 @@ the CPU, on the same scan messages (tiny sizes of
   times 2 * max_range (60 m here) plus its translation;
 * the deferred fetch: the runner's poses and metrics bit-equal to a hand
   loop that makes the same calls and copies each scan's outputs to the
-  host at once, and no kept output shares storage with the map tables
-  the next step rewrites in place;
+  host at once, and no kept output (the backend's keypoints included)
+  shares storage with the map tables the next step rewrites in place;
 * checkpoints: a `KissState` saved after 3 scans and restored with
   `weights_only=True` continues bit-equal (the port's
   test_pipeline.py::test_checkpoint_resume_exact);
-* the loop-closure backend raises (ROADMAP queue 1 item 4), and the
-  runner defaults to the card.
+* the loop-closure backend runs (one chunk of poses at a time; the raw
+  poses unchanged by it), and the runner defaults to the card.
 """
 
+import dataclasses
 import inspect
 
 import numpy as np
@@ -142,7 +143,8 @@ def _hand_loop(cfg, msgs):
                                cfg.lidar)
         state, out = tk.register_frame_step(state, scan, cfg)
         tables = {t.untyped_storage().data_ptr() for t in state.map}
-        kept = [out.pose] + [getattr(out, f) for f in trunner.ODOMETRY_FIELDS]
+        kept = ([out.pose, out.keypoints, out.keypoints_mask]
+                + [getattr(out, f) for f in trunner.ODOMETRY_FIELDS])
         assert not tables & {t.untyped_storage().data_ptr() for t in kept}
         poses.append(out.pose.numpy().copy())
         recs.append({f: float(getattr(out, f)) for f in trunner.ODOMETRY_FIELDS})
@@ -188,10 +190,32 @@ def test_checkpoint_restore_checks_the_template(tmp_path):
         trunner.checkpoint_restore(str(tmp_path), tk.init_state(cfg, "cpu"), 8, device="cpu")
 
 
-def test_backend_enabled_raises():
-    cfg = _cfg(tcfg, "xla").replace(backend=tcfg.BackendConfig(enabled=True))
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_backend_enabled_runs(backend):
+    """The loop-closure backend on: every scan a keyframe, two chunks and a
+    final flush; the raw poses are the run's without the backend, the
+    corrected ones the backend's re-anchoring of them."""
+    bcfg = tcfg.BackendConfig(enabled=True, keyframe_dist=0.0, keyframe_rot=0.0, chunk=3,
+                              optimize_every=4, min_index_gap=2, max_keyframes=16,
+                              max_edges=32)
+    # the verification's classic ICP needs the f32 slab on both paths
+    base = _cfg(tcfg, backend)
+    base = base.replace(map=dataclasses.replace(base.map, store_points=True))
+    cfg = base.replace(backend=bcfg)
+    r = trunner.OdometryRunner(cfg, device="cpu").run(iter(MSGS))
+    plain = trunner.OdometryRunner(base, device="cpu").run(iter(MSGS))
+    np.testing.assert_array_equal(np.stack(r.poses), np.stack(plain.poses))
+    assert r.backend.kf_scan_idx == list(range(N_SCANS))
+    assert r.backend.num_optimizations == 2  # at the second chunk's end, and the final round
+    assert not r._chunk  # released
+    np.testing.assert_array_equal(r.optimized_poses(), r.backend.correct(np.stack(r.poses)))
+    assert all(c.dtype == np.float32 and c.shape == (512, 3) for c in r.backend.kf_clouds)
+
+
+def test_backend_needs_the_point_slab():
+    cfg = _cfg(tcfg, "pallas").replace(backend=tcfg.BackendConfig(enabled=True))
     for cls in (trunner.OdometryRunner, trunner.LioRunner):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        with pytest.raises(ValueError, match="store_points=True"):
             cls(cfg, device="cpu")
 
 
