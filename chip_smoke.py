@@ -150,7 +150,26 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    13's pack;
 21. CLI: `--synthetic 40 --loop-closure` on the `kitti` preset: exit 0,
    `<out>.optimized` with 40 poses.
-One step of each batched drive runs under
+22. multi-device (`parallel/mesh.py`, `sharded_map.py`, `dryrun.py`; run
+   right after phase 11, on the slice's 120 scans): (a) the map sharded 4
+   ways (2^15 slots each) at world 1 through `sharded_map.register_frame`
+   against the single-map control at 2^17 through `kiss_icp.register_frame`,
+   both the classic deployment (f32 slab) under `batch_config` without
+   deskew: drops and window drops 0, every position within 1e-6 m of the
+   control's, every shard holding voxels and the largest under 3x the
+   smallest, ATE beside the control's, ms a scan, host reads a scan, peak
+   memory, no kernel launched; (b) phase 11's 8 streams through
+   `mesh.sharded_multistream_step` at world 1 for 10 steps: poses
+   bit-equal to `batched_register_frame_step`, GlobalMetrics equal to its
+   outputs' reduction, K5 exactly 2 x 10 launches; (c) 2 streams x 4 shards
+   for 10 scans, each stream within 1e-9 m of the single sharded run on its
+   scans; (d) `dryrun` at the tiny config in processes (`dryrun.spawn`):
+   world 2 over gloo with both ranks on one card and world 1 over NCCL
+   (and NCCL with one rank per card where there are two cards), each
+   bit-equal to world 1 without a process group, with JAX's counts (4080,
+   927 / 510, [927, 927]).
+One step of each batched drive (and of the sharded map and the stream
+mesh) runs under
 `torch.cuda.set_sync_debug_mode("error")`: the batched step never waits
 for the device.
 
@@ -160,13 +179,15 @@ when there is no CUDA card or any phase fails.
 
     python3 chip_smoke.py --measure ROOT
     python3 chip_smoke.py --turns PARENT
+    python3 chip_smoke.py --dryrun-only
 
 `--measure` runs only K1's checks, K2's, K3's, K6's and gn_proto's times
 (per call, device, host) and the fast and LIO slices, on the package of the checkout ROOT, and ends with one line
 `MEASURE {json}`. `--turns` runs `--measure` on the checkout PARENT (a
 `git archive` of an earlier commit, say) and on this one in turns —
 parent, change, change, parent, each in a process of its own — and sets
-their numbers side by side.
+their numbers side by side. `--dryrun-only` runs only phase 22 (d), the
+dry run in processes (on four cards, NCCL with one rank per card too).
 """
 
 from __future__ import annotations
@@ -2542,6 +2563,268 @@ def cli_loop_closure_phase():
              "cli --loop-closure: not 40 optimized poses")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: multi-device (parallel/mesh.py, sharded_map.py, dryrun.py)
+# ---------------------------------------------------------------------------
+
+SHARDS = 4  # the deployment's 2^17-slot map split four ways
+GRID_SCANS = 10  # the stream mesh and the combined grid
+MESH_SCANS = 10
+DRYRUN_DEVICES = 8  # __graft_entry__.dryrun_multichip(8), MULTICHIP_r05.json
+
+
+def sharded_cfgs(cfgmod, points_per_scan: int):
+    """The HDL-64E classic deployment (f32 slab) under batch_config with no
+    deskew (the sharded path has none): the single-map control at its 2^17
+    slots and the shard config at a quarter of them."""
+    from lidar_imu_slam_tpu_torch.parallel import streams
+
+    ctrl = streams.batch_config(bench_cfg(cfgmod, points_per_scan, gn_backend="xla"))
+    ctrl = ctrl.replace(icp=dataclasses.replace(ctrl.icp, deskew=False))
+    shard = ctrl.replace(map=dataclasses.replace(ctrl.map, capacity=ctrl.map.capacity // SHARDS))
+    return ctrl, shard
+
+
+def _sharded_drive(dev, cfg, scans, n_scans, counter=None, state=None):
+    """`sharded_map.register_frame` over scans [0, n_scans) at world 1.
+    Returns (state, poses (T, 4, 4) numpy, metrics per scan, ms per scan)."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.parallel import sharded_map
+
+    state = sharded_map.init_state(cfg, SHARDS, dev) if state is None else state
+    poses, metrics, events = [], [], []
+    with _counting(counter):
+        for i in range(n_scans):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, pose, m = sharded_map.register_frame(state, scans(i), cfg, SHARDS)
+            ev[1].record()
+            poses.append(pose)
+            metrics.append(m)
+            events.append(ev)
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    metrics = {k: torch.stack([m[k] for m in metrics]).cpu().numpy() for k in metrics[0]}
+    return state, torch.stack(poses).cpu().numpy(), metrics, ms
+
+
+def sharded_map_phase(dev, cfgmod, raws, gt, n_scans=N_SCANS, points=POINTS_PER_SCAN):
+    """(a) the map sharded four ways at world 1 against the single-map
+    control at 4x the capacity, both through the same config."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
+    from lidar_imu_slam_tpu_torch.parallel import sharded_map
+
+    ctrl_cfg, cfg = sharded_cfgs(cfgmod, points)
+
+    def scans(i):
+        return preprocess_scan(raws[i], cfg.lidar)
+
+    t0 = time.perf_counter()
+    warm, _, _, _ = _sharded_drive(dev, cfg, scans, 1)
+    _no_sync(lambda: sharded_map.register_frame(warm, scans(1), cfg, SHARDS))
+    print("sharded map: one register_frame ran under sync debug mode 'error'")
+    del warm
+    counts = _reads_and_ops(lambda n, counter: _sharded_drive(dev, cfg, scans, n, counter))
+    _common.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, poses, metrics, ms = _sharded_drive(dev, cfg, scans, n_scans)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_common.LAUNCHES)
+
+    ctrl = kiss_icp.init_state(ctrl_cfg, dev)
+    ctrl_poses, ctrl_wdrops = [], []
+    for i in range(n_scans):
+        ctrl, out = kiss_icp.register_frame(ctrl, scans(i), ctrl_cfg)
+        ctrl_poses.append(out.pose)
+        ctrl_wdrops.append(out.window_drops)
+    ctrl_poses = torch.stack(ctrl_poses).cpu().numpy()
+    ctrl_wdrops = int(torch.stack(ctrl_wdrops).sum())
+    ctrl_drops = int(ctrl.map.drops)
+    per_shard = voxel_map.num_voxels(state.map).cpu().numpy()
+    d = np.linalg.norm(poses[:, :3, 3] - ctrl_poses[:, :3, 3], axis=-1)
+    ate, ate_ctrl = _ate(poses, gt), _ate(ctrl_poses, gt)
+    print(f"sharded map: {SHARDS} shards x 2^{cfg.map.capacity.bit_length() - 1} slots against "
+          f"the single map at 2^{ctrl_cfg.map.capacity.bit_length() - 1}, {n_scans} scans of "
+          f"{points} points, {time.perf_counter() - t0:.1f} s")
+    print(f"sharded map: max |d position| to the control {d.max():.3e} m (tol 1e-6); ATE "
+          f"{ate:.4f} m, the control's {ate_ctrl:.4f} m (mid-scan)")
+    print(f"sharded map: drops {int(metrics['drops'][-1])} (control {ctrl_drops}), window "
+          f"drops {int(metrics['window_drops'].sum())} (control {ctrl_wdrops}); voxels per "
+          f"shard {per_shard.tolist()} (total {int(metrics['map_voxels'][-1])}, control "
+          f"{int(voxel_map.num_voxels(ctrl.map))}); launches {launches}")
+    print(f"sharded map: p50 {np.percentile(ms, 50):.3f} ms  p95 {np.percentile(ms, 95):.3f} ms "
+          f"a scan (CUDA events); peak memory {peak / 2**20:.1f} MiB")
+    print(_reads_ops_line("sharded map", counts))
+    _require(np.isfinite(poses).all(), "sharded map: non-finite pose")
+    _require(int(metrics["drops"][-1]) == 0 and ctrl_drops == 0, "sharded map: drops")
+    _require(int(metrics["window_drops"].sum()) == 0 and ctrl_wdrops == 0,
+             "sharded map: window drops")
+    _require(d.max() <= 1e-6, f"sharded map: {d.max():.3e} m from the control")
+    _require((per_shard > 0).all() and per_shard.max() < 3 * per_shard.min(),
+             f"sharded map: shards unbalanced {per_shard.tolist()}")
+    _require(not any(launches.values()), "sharded map: a kernel launched on the plain path")
+    return dict(cfg=cfg, poses=poses, ms_p50=float(np.percentile(ms, 50)), peak_bytes=peak)
+
+
+def stream_mesh_phase(dev, cfg, raws, n_steps=MESH_SCANS, n_streams=STREAMS):
+    """(b) phase 11's 8-stream deployment on the stream mesh at world 1:
+    bit-equal to `batched_register_frame_step`, the metrics those of its
+    outputs, K5 twice a step."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan, stack_raw_scans
+    from lidar_imu_slam_tpu_torch.parallel import mesh, streams
+
+    bcfg = streams.batch_config(cfg)
+    last = len(raws) - 1
+
+    def batch(i):
+        return preprocess_scan(stack_raw_scans([raws[min(i + s, last)]
+                                                for s in range(n_streams)]), bcfg.lidar)
+
+    ref_states = streams.init_batched_state(bcfg, n_streams, dev)
+    ref = []
+    for i in range(n_steps):
+        ref_states, out = streams.batched_register_frame_step(ref_states, batch(i), bcfg)
+        ref.append((out.pose, out))
+
+    m = mesh.stream_mesh(device=dev)
+    step = mesh.sharded_multistream_step(m, bcfg)
+    warm = streams.init_batched_state(bcfg, n_streams, dev)
+    warm, _, _ = step(warm, batch(0))
+    _no_sync(lambda: step(warm, mesh.shard_streams(batch(1), m)))
+    print("stream mesh: one step ran under sync debug mode 'error'")
+    del warm
+    states = mesh.shard_streams(streams.init_batched_state(bcfg, n_streams, dev), m)
+    _common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = []
+    for i in range(n_steps):
+        states, poses, metrics = step(states, mesh.shard_streams(batch(i), m))
+        got.append((poses, metrics))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_common.LAUNCHES)
+    same = all(torch.equal(p, r[0]) for (p, _), r in zip(got, ref))
+    metrics_equal = True
+    for (_, gm), (_, out) in zip(got, ref):
+        want = (out.residual_rms.sum() / n_streams,
+                out.num_correspondences.to(torch.int64).sum(),
+                out.icp_iterations.amax(),
+                out.map_voxels.to(torch.float64).sum() / n_streams)
+        metrics_equal &= all(torch.equal(a, b) for a, b in zip(gm, want))
+    print(f"stream mesh: world 1, {n_streams} streams x {n_steps} steps, "
+          f"{wall / n_steps * 1e3:.2f} ms a step (host clock); poses bit-equal to "
+          f"batched_register_frame_step: {same}; GlobalMetrics equal to the outputs' "
+          f"reduction: {metrics_equal}; last {dict(got[-1][1]._asdict())}; launches {launches}")
+    _require(same, "stream mesh: poses differ from batched_register_frame_step")
+    _require(metrics_equal, "stream mesh: GlobalMetrics differ from the outputs' reduction")
+    expect = n_steps * bcfg.icp.batch_unroll_outer
+    _require(launches["fused_gn_batched"] == expect,
+             f"stream mesh: K5 launched {launches['fused_gn_batched']} times, not {expect}")
+    for k in ("fused_gn_carry", "pose_pre", "pose_post", "fused_gn"):
+        _require(launches[k] == 0, f"stream mesh: {k} launched")
+    return launches["fused_gn_batched"]
+
+
+def combined_grid_phase(dev, cfg, raws, sharded, n_scans=GRID_SCANS):
+    """(c) 2 streams x 4 shards at world 1, stream s at step i on scan
+    i + s, each stream held to the single sharded run on its scans."""
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan, stack_raw_scans
+    from lidar_imu_slam_tpu_torch.parallel import sharded_map
+
+    state = sharded_map.init_multi_state(cfg, 2, SHARDS, dev)
+    t0 = time.perf_counter()
+    poses = []
+    for i in range(n_scans):
+        scans = preprocess_scan(stack_raw_scans([raws[i], raws[i + 1]]), cfg.lidar)
+        state, pose, _ = sharded_map.batched_register_frame(state, scans, cfg, SHARDS)
+        poses.append(pose)
+    poses = np.stack([p.cpu().numpy() for p in poses])
+    wall = time.perf_counter() - t0
+    one = {0: sharded[:n_scans]}
+    _, one[1], _, _ = _sharded_drive(dev, cfg, lambda i: preprocess_scan(raws[i + 1], cfg.lidar),
+                                     n_scans)
+    d = max(float(np.abs(poses[:, s, :3, 3] - one[s][:, :3, 3]).max()) for s in (0, 1))
+    print(f"combined grid: 2 streams x {SHARDS} shards at world 1, {n_scans} scans, "
+          f"{wall / n_scans * 1e3:.2f} ms a step (host clock); max |d position| to the single "
+          f"sharded runs {d:.3e} m (tol 1e-9)")
+    _require(np.isfinite(poses).all() and d <= 1e-9, f"combined grid: {d:.3e} m off")
+
+
+def _dryrun_same(what, got, ref):
+    """A dry run's results against world 1 without a process group: poses
+    bit-equal, integer metrics equal, f64 metrics within 1e-12 relative."""
+    for key in ("poses", "sharded_pose", "combined_poses"):
+        _require(np.array_equal(got[key], ref[key]), f"{what}: {key} differ from world 1")
+    _require(got["sharded_metrics"] == ref["sharded_metrics"]
+             and got["combined_voxels"] == ref["combined_voxels"],
+             f"{what}: integer metrics differ from world 1")
+    for k, v in ref["metrics"].items():
+        _require(abs(got["metrics"][k] - v) <= 1e-12 * abs(v), f"{what}: metric {k} differs")
+
+
+def processes_phase(dev):
+    """(d) the dry run at the tiny config in processes: world 2 over gloo on
+    one card, world 1 over NCCL, one rank per card over NCCL where there
+    are cards for it; each against world 1 without a process group."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.parallel import dryrun
+
+    def spawn(*args, **kw):
+        try:
+            return dryrun.spawn(*args, **kw)
+        except (RuntimeError, TimeoutError) as e:  # a rank failed or hung
+            raise SmokeFailure(f"dryrun: {e}") from e
+
+    ref = dryrun.run(DRYRUN_DEVICES, dev, quiet=True)
+    runs = [("gloo", 2, f"cuda:{dev.index or 0}"), ("nccl", 1, "cuda")]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("nccl", 4 if n_cards >= 4 else 2, "cuda"))
+    else:
+        print("dryrun: NCCL with one rank per card not run (1 card)")
+    print(f"dryrun: world 1 without a process group: ms a step " +
+          "  ".join(f"{k} {v / 2:.3f}" for k, v in ref["ms"].items()))
+    for backend, world, device in runs:
+        t0 = time.perf_counter()
+        outs = spawn(world, dryrun.run, (DRYRUN_DEVICES, device, 0, True), backend=backend,
+                     timeout_s=300)
+        for r, out in enumerate(outs):
+            _dryrun_same(f"dryrun {backend} world {world} rank {r}", out, ref)
+        print(f"dryrun: backend {backend}, world {world}, {device}: bit-equal to world 1; "
+              f"ms a step " + "  ".join(f"{k} {v / 2:.3f}" for k, v in outs[0]["ms"].items())
+              + f"; {time.perf_counter() - t0:.1f} s with the processes' start")
+    print(f"dryrun: counts {ref['metrics']['total_correspondences']} correspondences, "
+          f"{ref['sharded_metrics']['map_voxels']} voxels / "
+          f"{ref['sharded_metrics']['num_correspondences']}, combined {ref['combined_voxels']} "
+          f"(JAX: 4080, 927 / 510, [927, 927], MULTICHIP_r05.json)")
+    _require(ref["metrics"]["total_correspondences"] == 4080
+             and ref["sharded_metrics"]["map_voxels"] == 927
+             and ref["sharded_metrics"]["num_correspondences"] == 510
+             and ref["combined_voxels"] == [927, 927], "dryrun: counts differ from JAX's")
+
+
+def multi_device_phase(dev, cfgmod, cfg, raws, gt) -> int:
+    """Phase 22. Returns K5's launches on the stream mesh."""
+    t0 = time.perf_counter()
+    sharded = sharded_map_phase(dev, cfgmod, raws, gt)
+    k5 = stream_mesh_phase(dev, cfg, raws)
+    combined_grid_phase(dev, sharded["cfg"], raws, sharded["poses"])
+    processes_phase(dev)
+    print(f"multi-device: phase {time.perf_counter() - t0:.1f} s")
+    return k5
+
+
 def _build_kernels() -> None:
     """Build (or find) the kernel library and print ptxas' report."""
     from lidar_imu_slam_tpu_torch.ops.kernels import _build
@@ -2637,6 +2920,9 @@ def main(argv=None) -> int:
                          "package in the checkout ROOT; the last line is MEASURE {json}")
     ap.add_argument("--turns", metavar="PARENT",
                     help="--measure on the checkout PARENT and on this one, in turns")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="only phase 22's dry run in processes (NCCL with one rank per "
+                         "card where there are cards)")
     args = ap.parse_args(argv)
     if args.measure:
         sys.path.insert(0, os.path.abspath(args.measure))
@@ -2652,6 +2938,9 @@ def main(argv=None) -> int:
     print(card)
     if args.turns:
         return turns(args.turns)
+    if args.dryrun_only:
+        processes_phase(dev)
+        return 0
 
     from lidar_imu_slam_tpu_torch import config as cfgmod
 
@@ -2682,6 +2971,7 @@ def main(argv=None) -> int:
     launches["fused_gn"] = small_batched_phase(dev)["fused_gn"]
     small_batched_phase(dev, packed_nn=False)
     launches["fused_gn_batched"] = multi_stream_phase(dev, cfg, raws, gt)["fused_gn_batched"]
+    k5_mesh = multi_device_phase(dev, cfgmod, cfg, raws, gt)  # phase 22, on the same scans
     del raws
     monte_carlo_phase(dev, cfgmod)
     runner_nums = runner_phase(dev, cfg, msgs, gt, fast)
@@ -2698,6 +2988,8 @@ def main(argv=None) -> int:
     cli_loop_closure_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "fused_gn_batched":
+            k["launches_mesh"] = k5_mesh  # phase 22's stream mesh
         _require(k["launches"] > 0, f"kernel {k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,7 +13,11 @@ The LIO state (`models.lio.LioState`: the odometry state, the EKF state,
 the IMU initialization and the LIO bookkeeping) and the IMU packet cross
 the same way (`lio_state_from_numpy`, `lio_state_to_numpy`,
 `imu_packet_from_numpy`). So does the backend's pose graph
-(`models.backend.PoseGraph`: `pose_graph_from_numpy`, `pose_graph_to_numpy`).
+(`models.backend.PoseGraph`: `pose_graph_from_numpy`, `pose_graph_to_numpy`),
+and the sharded map's state (`parallel.sharded_map.ShardedKissState`: map
+leaves with a leading shard axis D, or (S, D) for the multi-state;
+`sharded_state_from_numpy`, `sharded_multi_state_from_numpy` and their
+`_to_numpy` pairs).
 """
 
 from __future__ import annotations
@@ -28,15 +32,14 @@ from .models.lio import LioState
 from .ops.imu import ImuInitState
 from .ops.icp import ThresholdState
 from .ops.voxel_map import VoxelMap
+from .parallel.mesh import on_device
+from .parallel.sharded_map import ShardedKissState
 
 
 def _t(a, device) -> torch.Tensor:
     """A copy of `a` on `device`, as the front view of a flat buffer with
     one spare element (the layout the map's in-place scatters reuse)."""
-    t = torch.from_numpy(np.array(a, copy=True).reshape(-1))
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
-    buf[:-1].copy_(t)
-    return buf[:-1].view(np.shape(a))
+    return on_device(torch.from_numpy(np.array(a, copy=True)), device)
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
@@ -137,3 +140,40 @@ def pose_graph_to_numpy(g: PoseGraph) -> PoseGraph:
     counts as i32 scalars, as JAX keeps them)."""
     return PoseGraph(*(_n(getattr(g, f)) for f in PoseGraph._fields[:7]),
                      num_nodes=np.int32(g.num_nodes), num_edges=np.int32(g.num_edges))
+
+
+def _sharded_lead(tree, n_lead: int) -> None:
+    """Raise unless the map leaves carry `n_lead` + 1 leading axes (streams
+    and shards) and the pose leaves `n_lead` (streams)."""
+    keys, pose = tree.map.keys, tree.pose
+    if len(keys.shape) != n_lead + 2 or len(pose.shape) != n_lead + 2 or (
+            tuple(keys.shape)[:n_lead] != tuple(pose.shape)[:n_lead]):
+        what = "(S, D) map and (S,) pose" if n_lead else "(D,) map and unbatched pose"
+        raise ValueError(f"a sharded state needs {what} leading axes, got map keys "
+                         f"{tuple(keys.shape)} and pose {tuple(pose.shape)}")
+
+
+def sharded_state_from_numpy(tree, device: torch.device | str = "cuda") -> ShardedKissState:
+    """Port sharded state from the numpy leaves of a JAX ShardedKissState
+    (map leaves (D, ...), the rest unbatched), all on `device`."""
+    _sharded_lead(tree, 0)
+    return ShardedKissState(*kiss_state_from_numpy(tree, device))
+
+
+def sharded_state_to_numpy(state: ShardedKissState) -> ShardedKissState:
+    """The port's sharded state with numpy leaves in the JAX field order."""
+    _sharded_lead(state, 0)
+    return ShardedKissState(*kiss_state_to_numpy(state))
+
+
+def sharded_multi_state_from_numpy(tree, device: torch.device | str = "cuda") -> ShardedKissState:
+    """Port multi-state from the numpy leaves of a JAX `init_multi_state`
+    (map leaves (S, D, ...), the rest (S, ...))."""
+    _sharded_lead(tree, 1)
+    return ShardedKissState(*kiss_state_from_numpy(tree, device))
+
+
+def sharded_multi_state_to_numpy(state: ShardedKissState) -> ShardedKissState:
+    """The port's multi-state with numpy leaves in the JAX field order."""
+    _sharded_lead(state, 1)
+    return ShardedKissState(*kiss_state_to_numpy(state))

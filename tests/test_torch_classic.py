@@ -43,6 +43,9 @@ from lidar_imu_slam_tpu_torch.ops import icp as ticp
 from lidar_imu_slam_tpu_torch.ops import lie as tlie
 from lidar_imu_slam_tpu_torch.ops import preprocess as tpre
 from lidar_imu_slam_tpu_torch.ops import voxel_map as tvm
+from lidar_imu_slam_tpu_torch.parallel import dryrun as tdryrun
+from lidar_imu_slam_tpu_torch.parallel import mesh as tmesh
+from lidar_imu_slam_tpu_torch.parallel import sharded_map as tsm
 from lidar_imu_slam_tpu_torch.parallel import streams as tstreams
 from lidar_imu_slam_tpu_torch.validation import oracle as oracle_mod
 
@@ -57,7 +60,13 @@ MAP_KW = dict(voxel_size=0.5, max_range=30.0, capacity=1 << 12)
                                 interop.batched_kiss_state_from_numpy,
                                 tlio.init_state, tlio.pack_imu_packet, tekf.init,
                                 timu.init_state, interop.lio_state_from_numpy,
-                                interop.imu_packet_from_numpy])
+                                interop.imu_packet_from_numpy,
+                                interop.sharded_state_from_numpy,
+                                interop.sharded_multi_state_from_numpy,
+                                tsm.init_state, tsm.init_multi_state, tmesh.stream_mesh,
+                                tmesh.grid_mesh, tdryrun.run, tdryrun.example_scan,
+                                tdryrun.drive_sharded, tdryrun.drive_streams,
+                                tdryrun.mesh_layout])
 def test_entry_points_default_to_the_card(fn):
     # a caller who leaves out `device=` gets the card (ROADMAP queue 3)
     assert inspect.signature(fn).parameters["device"].default == "cuda"

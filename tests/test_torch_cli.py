@@ -40,7 +40,8 @@ NEW_MODULES = ("cli", "config_io", "host.runner", "host.stream_sync", "host.adve
                "host.kitti", "host.rosbag", "utils.metrics", "utils.cloud_io",
                "utils.trajectory", "ops.preprocess", "tools.bag_writer",
                "models.backend", "host.keyframes", "validation", "validation.oracle",
-               "utils.profiling", "host.native", "interop")
+               "utils.profiling", "host.native", "interop", "parallel.mesh",
+               "parallel.sharded_map", "parallel.dryrun")
 
 
 def _small_yaml(tmp_path, extra=""):
