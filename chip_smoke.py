@@ -168,6 +168,26 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    (and NCCL with one rank per card where there are two cards), each
    bit-equal to world 1 without a process group, with JAX's counts (4080,
    927 / 510, [927, 927]).
+23. dense solid-state (run right after phase 7): `config.livox_dense()`
+   (BASELINE.json config 4: 262,144-point scans, the packed-sort budget
+   2^18, 6 lines, 5-100 m, no per-point time, no deskew, a 2^18-slot map
+   with the f32 slab, 65,536 map / 16,384 source points, in-step eviction
+   and compaction check, the fast path K1-K3) on tests/test_livox.py's
+   world and trajectory over 60 scans (24 m), each rendered at exactly
+   262,144 points. (a) `register_frame_step` on the uploaded scans: drops
+   and window drops 0, more than 1,000 correspondences on every scan after
+   scan 0, every position within 0.3 m of the truth, ATE printed; K1, K2
+   and K3 launches (counters zeroed just before the run; K1 launched, K2 /
+   K3 once a scan); scans/s, p50 / p95 ms a scan (CUDA events round
+   preprocess + step), host reads by call site and aten ops a scan over
+   scans 0-19, peak memory, final map voxels. (b) The first 6 scans on the
+   card and on the CPU: scan 0's map bit-equal, poses within 1e-4. (c) K1
+   at 16,384 x 80 on the inputs of scan 5's first ICP round (captured in
+   (b)): within 1e-5 rad / 1e-4 m of its plain version, a repeated launch
+   bit-equal, ms per call and on the device with its iteration count, at
+   cluster sizes 4, 8 and 16, its registers and bound. (d)
+   `OdometryRunner(cfg, device).run` on the scans as host messages:
+   bit-equal to (a)'s loop; scans/s, host reads a scan.
 One step of each batched drive (and of the sharded map and the stream
 mesh) runs under
 `torch.cuda.set_sync_debug_mode("error")`: the batched step never waits
@@ -182,7 +202,8 @@ when there is no CUDA card or any phase fails.
     python3 chip_smoke.py --dryrun-only
 
 `--measure` runs only K1's checks, K2's, K3's, K6's and gn_proto's times
-(per call, device, host) and the fast and LIO slices, on the package of the checkout ROOT, and ends with one line
+(per call, device, host), the fast and LIO slices and phase 23's dense
+drive, on the package of the checkout ROOT, and ends with one line
 `MEASURE {json}`. `--turns` runs `--measure` on the checkout PARENT (a
 `git archive` of an earlier commit, say) and on this one in turns —
 parent, change, change, parent, each in a process of its own — and sets
@@ -388,12 +409,53 @@ def _se3(rng, scale_t, scale_r):
     return lie.se3_exp(torch.from_numpy(xi))
 
 
+def _k1_check(what, q, qmask, cand, scal, carry, inner, plain_reps) -> dict:
+    """K1 on one set of inputs: its cluster shape, a repeated launch
+    bit-equal, within 1e-5 rad / 1e-4 m of its plain version (iterations
+    and flags equal, n_corr within 1), timed per call and on the device
+    beside the plain version and its bound, and at cluster sizes 4, 8 and
+    16. Returns its row and numbers."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+
+    n, nc = q.shape[1], cand.shape[1]
+    shape = f"{n} x {nc}"
+    c = _gn_cluster(f"{what} ({shape})", n, nc)
+    fn = lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner)  # noqa: E731
+    plain = lambda: icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner)  # noqa: E731
+    row = _same_twice(what, fn)
+    ref = plain()
+    torch.cuda.synchronize()
+    a, b = row.cpu().numpy(), ref.cpu().numpy()
+    err_R = float(np.abs(a[:9] - b[:9]).max())
+    err_t = float(np.abs(a[9:12] - b[9:12]).max())
+    print(f"{what}: row {np.round(a, 6).tolist()}")
+    print(f"{what}: max|dR| {err_R:.3e} (tol 1e-5)  max|dt| {err_t:.3e} m (tol 1e-4)  "
+          f"iters {a[14]:.0f}/{b[14]:.0f}  flags {a[15]:.0f}/{b[15]:.0f}  "
+          f"n_corr {a[12]:.0f}/{b[12]:.0f} (tol 1)")
+    _require(err_R <= 1e-5 and err_t <= 1e-4, f"{what}: pose disagrees with its plain version")
+    _require(a[14] == b[14] and a[15] == b[15], f"{what}: iterations / flags disagree")
+    _require(abs(a[12] - b[12]) <= 1, f"{what}: n_corr disagrees")
+    ms = _cuda_ms(fn, 50)
+    plain_ms = _cuda_ms(plain, plain_reps)
+    bound, by = _gn_bound(q, qmask, cand, scal, row, carry)
+    dev_ms = _device_ms(fn, 50)
+    print(f"{what}: {ms:.4f} ms/launch (device {dev_ms:.4f}) over {a[14]:.0f} iterations  "
+          f"plain {plain_ms:.4f} ms/call  bound {bound:.5f} ms ({by})")
+    sweep = _cluster_sweep(f"{what} ({shape})", lambda sh: icp_gn._launch(
+        "fused_gn_carry", q, qmask, cand, scal, carry, inner, 1, (16,), shape=sh), n, nc,
+        (4, 8, 16))
+    return dict(row=row, max_abs_err=max(err_R, err_t), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, device_ms=dev_ms, cluster=c,
+                iterations=float(a[14]), device_ms_by_cluster=sweep)
+
+
 def kernel_phase(dev, cfg):
     """Each kernel against its plain version at main-path shapes."""
     import torch
 
     from lidar_imu_slam_tpu_torch.ops import voxel_map
-    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
 
     results = []
     rng = np.random.default_rng(0)
@@ -422,40 +484,17 @@ def kernel_phase(dev, cfg):
     carry = torch.cat([torch.eye(3, dtype=torch.float64, device=dev).reshape(9),
                        torch.zeros(3, dtype=torch.float64, device=dev),
                        anchor.double()])
-    inner = cfg.icp.fused_inner
     print("K1 / K4 / K5 gn_cluster_kernel, ptxas: " + "; ".join(_ptxas_lines("gn_cluster_kernel")))
-    c1 = _gn_cluster("K1 fused_gn_carry (4096 x 80)", n, cand.shape[1])
-    k1 = _same_twice("K1", lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner))
-    k1_ref = icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner)
-    torch.cuda.synchronize()
-    a, b = k1.cpu().numpy(), k1_ref.cpu().numpy()
-    err_R = float(np.abs(a[:9] - b[:9]).max())
-    err_t = float(np.abs(a[9:12] - b[9:12]).max())
-    print(f"K1 fused_gn_carry: row {np.round(a, 6).tolist()}")
-    print(f"K1 max|dR| {err_R:.3e} (tol 1e-5)  max|dt| {err_t:.3e} m (tol 1e-4)  "
-          f"iters {a[14]:.0f}/{b[14]:.0f}  flags {a[15]:.0f}/{b[15]:.0f}  "
-          f"n_corr {a[12]:.0f}/{b[12]:.0f} (tol 1)")
-    _require(err_R <= 1e-5 and err_t <= 1e-4, "K1 pose disagrees with its plain version")
-    _require(a[14] == b[14] and a[15] == b[15], "K1 iterations/flags disagree")
-    _require(abs(a[12] - b[12]) <= 1, "K1 n_corr disagrees")
-    ms = _cuda_ms(lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner), 50)
-    plain_ms = _cuda_ms(lambda: icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner), 5)
-    bound, by = _gn_bound(q, qmask, cand, scal, k1, carry)
-    dev_ms = _device_ms(lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner), 50)
-    print(f"K1 {ms:.4f} ms/launch (device {dev_ms:.4f})  plain {plain_ms:.4f} ms/call  "
-          f"bound {bound:.5f} ms ({by})")
-    _cluster_sweep("K1 (4096 x 80)", lambda shape: icp_gn._launch(
-        "fused_gn_carry", q, qmask, cand, scal, carry, inner, 1, (16,), shape=shape), n,
-        cand.shape[1], (4, 8, 16))
+    k1 = _k1_check("K1 fused_gn_carry", q, qmask, cand, scal, carry, cfg.icp.fused_inner, 5)
     # no single PyTorch call computes a robust GN solve: library_ms is null
     results.append(dict(name="fused_gn_carry", route="cuda",
                         source="lidar_imu_slam_tpu_torch/csrc/icp_gn.cu",
                         replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:383",
-                        max_abs_err=max(err_R, err_t), ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev_ms,
-                        cluster=c1, ctas=c1))
+                        max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+                        bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
+                        device_ms=k1["device_ms"], cluster=k1["cluster"], ctas=k1["cluster"]))
 
-    return results + pose_chain_phase(dev, cfg, rng, k1)
+    return results + pose_chain_phase(dev, cfg, rng, k1["row"])
 
 
 def _storage_bytes(tensors) -> int:
@@ -2825,6 +2864,226 @@ def multi_device_phase(dev, cfgmod, cfg, raws, gt) -> int:
     return k5
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the dense solid-state deployment (config.livox_dense())
+# ---------------------------------------------------------------------------
+
+DENSE_SCANS = 60  # 24 m at 4 m/s, inside the world's 120 m
+DENSE_CPU_SCANS = 6  # (b): tests/test_livox.py's drive, on the CPU as well
+DENSE_K1_SCAN = 5  # (c): K1's inputs from this scan's first ICP round
+DENSE_ERR_LIMIT_M = 0.3  # tests/test_livox.py's bar, here at every scan
+DENSE_MIN_CORR = 1000  # tests/test_livox.py's bar, every scan after scan 0
+
+
+def render_dense_drive(dev):
+    """tests/test_livox.py's drive (world seed 2, 500,000 points in 120 x 30
+    x 10 m; 4 m/s, yaw rate 0.01, dt 0.1) over DENSE_SCANS scans at the
+    preset's full 262,144 points, without per-point time: the scans
+    uploaded, the same scans as host messages {"xyz", "stamp"}, and the
+    ground truth."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+    from lidar_imu_slam_tpu_torch.host import synthetic
+    from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan
+
+    lc = cfgmod.livox_dense().lidar
+    t0 = time.perf_counter()
+    world = synthetic.make_world(seed=2, n_points=500_000, extent=(120.0, 30.0, 10.0))
+    gt = synthetic.make_trajectory(n_poses=DENSE_SCANS, speed=4.0, yaw_rate=0.01, dt=0.1)
+    raws, msgs = [], []
+    for i in range(DENSE_SCANS):
+        pts = synthetic.render_scan(world, gt[i], lc.max_points, lc.min_range, lc.max_range,
+                                    noise=0.02, seed=i)
+        _require(len(pts) == lc.max_points,
+                 f"dense: scan {i} rendered {len(pts)} points, not {lc.max_points}")
+        msgs.append({"xyz": pts, "stamp": i * 0.1})
+        raws.append(pack_raw_scan(pts, stamp=i * 0.1, max_points=lc.max_points, device=dev))
+    torch.cuda.synchronize()
+    print(f"dense: rendered and uploaded {DENSE_SCANS} scans of {lc.max_points} points in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return raws, msgs, gt
+
+
+def _dense_hand_loop(dev, cfg, raws, gt):
+    """(a) `register_frame_step` on the uploaded scans, the runner's calls
+    (in-step eviction and compaction check, `_maybe_rebuild`'s check) on
+    one thread. Returns (the drive's numbers, a `_runner_fields` row a
+    scan, K1's launches)."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.host import runner as runner_mod
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common
+    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
+
+    fields = runner_mod.ODOMETRY_FIELDS
+
+    def run(n_scans, counter=None):
+        state = kiss_icp.init_state(cfg, dev)
+        kept, ms = [], []
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter()
+        with _counting(counter):
+            for i in range(n_scans):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                state, out = kiss_icp.register_frame_step(
+                    state, preprocess_scan(raws[i], cfg.lidar), cfg)
+                state = state._replace(map=_maybe_rebuild_like_runner(state.map, cfg, i))
+                ev1.record()
+                kept.append((out.pose, *(getattr(out, f) for f in fields)))  # copied after
+                ms.append((ev0, ev1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall0
+        hand = [[p.cpu().numpy()] + [float(v) for v in rest] for p, *rest in kept]
+        return state, hand, wall, np.array([a.elapsed_time(b) for a, b in ms])
+
+    run(3)  # warm-up on a throwaway state
+    counts = _reads_and_ops(run)
+    torch.cuda.reset_peak_memory_stats()
+    _common.reset_launches()
+    state, hand, wall, step_ms = run(DENSE_SCANS)
+    launches = dict(_common.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    poses = np.stack([h[0] for h in hand])
+    col = {f: np.array([h[1 + k] for h in hand]) for k, f in enumerate(fields)}
+    _require(np.isfinite(poses).all(), "dense: non-finite pose")
+    ref = np.linalg.inv(gt[0])[None] @ gt
+    err = np.linalg.norm(poses[:, :3, 3] - ref[:, :3, 3], axis=-1)
+    drops = int(state.map.drops)
+    stats = dict(scans_per_s=DENSE_SCANS / wall, p50_ms=float(np.percentile(step_ms, 50)),
+                 p95_ms=float(np.percentile(step_ms, 95)), max_err_m=float(err.max()),
+                 ate_m=_ate(poses, gt, shift=0.5), ate_instant_m=_ate(poses, gt, shift=0.0),
+                 peak_mib=peak, map_voxels=int(voxel_map.num_voxels(state.map)),
+                 icp_iterations=float(col["icp_iterations"].mean()), **counts)
+    print(f"dense (a): {stats['scans_per_s']:.2f} scans/s (host clock)  p50 "
+          f"{stats['p50_ms']:.3f} ms  p95 {stats['p95_ms']:.3f} ms a scan (CUDA events, "
+          f"preprocess + step)")
+    print(f"dense (a): position error max {err.max():.4f} m (limit {DENSE_ERR_LIMIT_M}), last "
+          f"{err[-1]:.4f} m; ATE {stats['ate_instant_m']:.4f} m at each scan's instant "
+          f"(render_scan's convention), {stats['ate_m']:.4f} m with phase 7's mid-scan shift")
+    print(f"dense (a): correspondences min {int(col['num_correspondences'][1:].min())} over "
+          f"scans 1-{DENSE_SCANS - 1} (bar > {DENSE_MIN_CORR}); ICP iterations mean "
+          f"{col['icp_iterations'].mean():.2f} max {int(col['icp_iterations'].max())}; window "
+          f"drops {int(col['window_drops'].sum())}; map drops {drops}; tombstones "
+          f"{int(state.map.tombstones)}; final map voxels {stats['map_voxels']}; peak memory "
+          f"{peak:.1f} MiB")
+    print(f"dense (a): launches K1 {launches['fused_gn_carry']}  K2 {launches['pose_pre']}  "
+          f"K3 {launches['pose_post']}  (all {launches})")
+    print(_reads_ops_line("dense (a)", counts))
+    _require(drops == 0 and not col["window_drops"].any(), "dense: drops or window drops")
+    _require(bool((col["num_correspondences"][1:] > DENSE_MIN_CORR).all()),
+             f"dense: a scan with {DENSE_MIN_CORR} correspondences or fewer")
+    _require(err.max() < DENSE_ERR_LIMIT_M,
+             f"dense: position error {err.max():.4f} m at or above {DENSE_ERR_LIMIT_M}")
+    _require(launches["fused_gn_carry"] > 0, "dense: K1 never launched")
+    _require(launches["pose_pre"] == DENSE_SCANS and launches["pose_post"] == DENSE_SCANS,
+             "dense: K2 / K3 did not run once per scan")
+    return stats, hand, launches["fused_gn_carry"]
+
+
+def _dense_card_vs_cpu(dev, cfg, msgs, hand):
+    """(b) The first DENSE_CPU_SCANS scans through the port on the card and
+    on the CPU: scan 0's map bit-equal, poses within phase 6's 1e-4. The
+    card run keeps the inputs of K1's first launch at scan DENSE_K1_SCAN.
+    Returns those inputs."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+    from lidar_imu_slam_tpu_torch.ops.preprocess import pack_raw_scan, preprocess_scan
+
+    launch, captured, scan_no = icp_gn.fused_gn_carry, [], [0]
+
+    def capture(*args):
+        if scan_no[0] == DENSE_K1_SCAN and not captured:
+            captured.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return launch(*args)
+
+    maps, poses = {}, {}
+    t0 = time.perf_counter()
+    for d in (dev, "cpu"):
+        state = kiss_icp.init_state(cfg, d)
+        poses[d] = []
+        icp_gn.fused_gn_carry = capture if d == dev else launch
+        try:
+            for i, m in enumerate(msgs[:DENSE_CPU_SCANS]):
+                scan_no[0] = i
+                raw = pack_raw_scan(m["xyz"], stamp=m["stamp"], max_points=cfg.lidar.max_points,
+                                    device=d)
+                state, out = kiss_icp.register_frame_step(
+                    state, preprocess_scan(raw, cfg.lidar), cfg)
+                if i == 0:
+                    maps[d] = [t.cpu().clone() for t in state.map]
+                poses[d].append(out.pose.cpu().numpy())
+        finally:
+            icp_gn.fused_gn_carry = launch
+    same0 = all(torch.equal(a, b) for a, b in zip(maps[dev], maps["cpu"]))
+    worst = float(np.abs(np.stack(poses[dev]) - np.stack(poses["cpu"])).max())
+    like_a = np.array_equal(np.stack(poses[dev]), np.stack([h[0] for h in hand[:DENSE_CPU_SCANS]]))
+    print(f"dense (b): card (K1-K3) vs CPU (plain) over {DENSE_CPU_SCANS} scans: scan 0's map "
+          f"bit-equal {same0}; max|d pose| {worst:.3e} (tol 1e-4); the card's poses bit-equal "
+          f"to (a)'s: {like_a}; {time.perf_counter() - t0:.1f} s")
+    _require(same0, "dense: scan 0's map differs between the card and the CPU")
+    _require(worst <= 1e-4, "dense: card and CPU poses disagree")
+    _require(len(captured) == 1, f"dense: no K1 launch captured at scan {DENSE_K1_SCAN}")
+    return captured[0]
+
+
+def _dense_k1(args) -> dict:
+    """(c) K1 at the dense shape (16,384 queries x 80 slots) on one on-path
+    launch's inputs, as phase 3 holds it at 4096 x 80, with its registers."""
+    q, qmask, cand, scal, carry, inner = args
+    n, nc = q.shape[1], cand.shape[1]
+    _require((n, nc) == (16384, 80), f"dense: K1 at {n} x {nc}, not 16384 x 80")
+    print("dense K1, ptxas: " + "; ".join(_ptxas_lines("gn_cluster_kernel")))
+    k1 = _k1_check("dense K1", q, qmask, cand, scal, carry, inner, 3)
+    del k1["row"]
+    return dict(k1, n=n, nc=nc)
+
+
+def _dense_runner(dev, cfg, msgs, hand):
+    """(d) `OdometryRunner(cfg, device).run` over the scans as host
+    messages: bit-equal to (a)'s hand loop."""
+    from lidar_imu_slam_tpu_torch.host import runner as runner_mod
+
+    def make():
+        return runner_mod.OdometryRunner(cfg, device=dev)
+
+    make().run(iter(msgs[:3]))  # warm-up: the worker thread's first CUDA work
+    runner, wall, sites, launches = _timed_run(make, lambda r: r.run(iter(msgs)), launches=True)
+    n = len(runner.poses)
+    _require(n == DENSE_SCANS, f"dense runner: {n} poses for {DENSE_SCANS} scans")
+    print(_runner_line("dense (d) runner", runner, wall, sites, n) +
+          f"; launches K1 {launches['fused_gn_carry']} K2 {launches['pose_pre']} "
+          f"K3 {launches['pose_post']}")
+    _assert_like_hand_loop("dense (d) runner", runner, hand, runner_mod.ODOMETRY_FIELDS)
+    return dict(scans_per_s=n / wall, host_reads_per_scan=sum(sites.values()) / n)
+
+
+def dense_phase(dev) -> dict:
+    """Phase 23: the dense solid-state deployment (`config.livox_dense()`,
+    BASELINE.json config 4) on the card. Returns its numbers (`k1`: K1 at
+    the dense shape; `k1_launches`: K1's launches on the drive)."""
+    from lidar_imu_slam_tpu_torch import config as cfgmod
+
+    t0 = time.perf_counter()
+    cfg = cfgmod.livox_dense()
+    raws, msgs, gt = render_dense_drive(dev)
+    stats, hand, k1_launches = _dense_hand_loop(dev, cfg, raws, gt)
+    del raws
+    k1 = _dense_k1(_dense_card_vs_cpu(dev, cfg, msgs, hand))
+    runner = _dense_runner(dev, cfg, msgs, hand)
+    print(f"dense: phase {time.perf_counter() - t0:.1f} s")
+    return dict(stats, k1=dict(k1, launches=k1_launches), k1_ms=k1["ms"],
+                k1_device_ms=k1["device_ms"], runner_scans_per_s=runner["scans_per_s"],
+                runner_host_reads_per_scan=runner["host_reads_per_scan"])
+
+
 def _build_kernels() -> None:
     """Build (or find) the kernel library and print ptxas' report."""
     from lidar_imu_slam_tpu_torch.ops.kernels import _build
@@ -2859,7 +3118,7 @@ def _k6_proto_times(dev) -> dict:
 def measure(dev) -> dict:
     """`--measure`: K2's and K3's times (with K1's checks before them, as
     in the smoke run), K6's and gn_proto's times, then the fast and LIO
-    slices; returns their numbers."""
+    slices and the dense drive (phase 23); returns their numbers."""
     from lidar_imu_slam_tpu_torch import config as cfgmod
 
     cfg = bench_cfg(cfgmod, POINTS_PER_SCAN)
@@ -2868,7 +3127,9 @@ def measure(dev) -> dict:
     kernels.update(_k6_proto_times(dev))
     raws, _, gt = render_hdl_drive(dev)
     _, fast = slice_phase(dev, cfg, raws, gt)
-    return dict(kernels=kernels, slice=fast, lio=lio_slice_phase(dev, cfg, raws, gt))
+    lio = lio_slice_phase(dev, cfg, raws, gt)
+    del raws
+    return dict(kernels=kernels, slice=fast, lio=lio, dense=dense_phase(dev))
 
 
 MEASURE_KEYS = {  # what --turns sets side by side (K6 and gn_proto: ms, device, host)
@@ -2878,6 +3139,7 @@ MEASURE_KEYS = {  # what --turns sets side by side (K6 and gn_proto: ms, device,
               "host_reads_per_scan", "ate_m"),
     "lio": ("scans_per_s", "p50_ms", "ops_per_scan", "compute_ops_per_scan",
             "host_reads_per_scan", "ate_m"),
+    "dense": ("scans_per_s", "p50_ms", "k1_ms", "k1_device_ms"),
 }
 
 
@@ -2916,8 +3178,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU.")
     ap.add_argument("--measure", metavar="ROOT",
-                    help="only K2 / K3 times and the fast and LIO slices' numbers, of the "
-                         "package in the checkout ROOT; the last line is MEASURE {json}")
+                    help="only K2 / K3 times and the fast, LIO and dense drives' numbers, of "
+                         "the package in the checkout ROOT; the last line is MEASURE {json}")
     ap.add_argument("--turns", metavar="PARENT",
                     help="--measure on the checkout PARENT and on this one, in turns")
     ap.add_argument("--dryrun-only", action="store_true",
@@ -2963,6 +3225,7 @@ def main(argv=None) -> int:
     raws, msgs, gt = render_hdl_drive(dev)
     launches, fast = slice_phase(dev, cfg, raws, gt)
     launches.update(probe_launches)
+    dense = dense_phase(dev)  # phase 23
     lio = lio_slice_phase(dev, cfg, raws, gt)
     state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
     launches["nn_bruteforce"] = nn_on_path_phase(dev, cfg64, state64, out64)
@@ -2990,6 +3253,8 @@ def main(argv=None) -> int:
         k["launches"] = launches[k["name"]]
         if k["name"] == "fused_gn_batched":
             k["launches_mesh"] = k5_mesh  # phase 22's stream mesh
+        if k["name"] == "fused_gn_carry":
+            k["dense"] = dense["k1"]  # phase 23: K1 at 16,384 x 80, its launches on that drive
         _require(k["launches"] > 0, f"kernel {k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)
