@@ -12,9 +12,13 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    against their plain PyTorch versions on the card at main-path shapes
    (K1: N = 4096 queries x NC = 80 candidate slots from seeded synthetic
    geometry; K2 / K3: a seeded 5-pose state), each timed beside its plain
-   version with CUDA events. The GN cluster kernel's ptxas registers and
-   spills, K1's cluster shape (C CTAs a stream, at least 8 at N = 4096), a
-   repeated launch bit-equal, and K1 timed at cluster sizes 4, 8 and 16.
+   version with CUDA events. The GN cluster and spread kernels' ptxas
+   registers and spills, K1's launch shape (one cluster of C CTAs a
+   stream, at least 8 at N = 4096, never spread there), a repeated launch
+   bit-equal, and K1 timed at cluster sizes 4, 8 and 16 and spread over G
+   clusters of C (SPREAD_SWEEP; a shape the card cannot hold at once must
+   raise before it launches); the same at the kitti_64beam preset's 8192
+   source points, where K1 spreads over several clusters.
    K2 and K3 also on device (launches queued behind a stream sleep) and
    host (enqueue clock) beside the launch floor (an empty one-block
    launch), and on every branch case of tools/pose_chain_cases.py, every
@@ -183,9 +187,12 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    scans 0-19, peak memory, final map voxels. (b) The first 6 scans on the
    card and on the CPU: scan 0's map bit-equal, poses within 1e-4. (c) K1
    at 16,384 x 80 on the inputs of scan 5's first ICP round (captured in
-   (b)): within 1e-5 rad / 1e-4 m of its plain version, a repeated launch
-   bit-equal, ms per call and on the device with its iteration count, at
-   cluster sizes 4, 8 and 16, its registers and bound. (d)
+   (b)): spread over G > 1 clusters (its G, C, queries a CTA, dynamic
+   shared memory, registers and spills, and the clusters the card holds
+   at once printed), within 1e-5 rad / 1e-4 m of its plain version, a
+   repeated launch bit-equal, ms per call and on the device with its
+   iteration count and bound, and the same sweep as phase 3; every K1
+   launch of (a) spread (kernel `gn_spread` in the JSON line). (d)
    `OdometryRunner(cfg, device).run` on the scans as host messages:
    bit-equal to (a)'s loop; scans/s, host reads a scan.
 One step of each batched drive (and of the sharded map and the stream
@@ -319,17 +326,41 @@ def _ptxas_lines(entry: str) -> list[str]:
     return lines
 
 
-def _gn_cluster(what, n, nc, streams=1):
-    """Print and check one GN launch's cluster: C CTAs a stream of n
-    queries x nc slots, streams x C CTAs in all. Returns C."""
+def _gn_cluster(what, n, nc, streams=1) -> dict:
+    """Print and check one GN launch's shape: G clusters of C CTAs a
+    stream of n queries x nc slots (G = 1: the cluster kernel, streams x C
+    CTAs in all; G > 1: the spread kernel, one stream), at most `per`
+    queries a CTA, its dynamic shared memory and the clusters the card
+    holds at once. Returns them."""
+    import torch
+
     from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
 
-    c, per = icp_gn.launch_shape(n, nc)
-    print(f"{what}: cluster of C = {c} CTAs x {per} queries per stream, {streams * c} CTAs in "
-          f"total; {icp_gn.max_active_clusters(c)} clusters of {c} resident at most")
-    if n >= 4096:
-        _require(c >= 8, f"{what}: {c} CTAs per stream at N = {n}, fewer than 8")
-    return c
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g, c, per, resident = (icp_gn.device_shape(n, nc, dev) if streams == 1
+                           else (1, *icp_gn.launch_shape(n, nc), False))
+    if g == 1:
+        smem, active = 0, icp_gn.max_active_clusters(c)
+        print(f"{what}: G = 1 cluster of C = {c} CTAs x {per} queries per stream, "
+              f"{streams * c} CTAs in total (the cluster kernel); {active} clusters of {c} "
+              f"resident at most")
+        if n >= 4096:
+            _require(c >= 8, f"{what}: {c} CTAs per stream at N = {n}, fewer than 8")
+    else:
+        smem = icp_gn.slab_bytes(per, nc) if resident else 0
+        active, budget = icp_gn.spread_limits(dev, c, nc, per, resident)
+        print(f"{what}: G = {g} clusters of C = {c} CTAs, at most {per} queries a CTA, "
+              f"{g * c} CTAs (the spread kernel); candidates "
+              f"{'resident' if resident else 'from L2'}, {smem} bytes of dynamic shared memory "
+              f"a CTA (budget {budget}); {active} clusters of {c} resident at most")
+    return dict(groups=g, cluster=c, per_cta=per, resident=resident, smem=smem,
+                active_clusters=active)
+
+
+def _spread_ptxas() -> None:
+    """ptxas' registers and spills of the spread kernel's two variants."""
+    for variant, tag in (("resident", "gn_spread_kernelILb1E"), ("from L2", "gn_spread_kernelILb0E")):
+        print(f"K1 / K4 gn_spread_kernel ({variant}), ptxas: " + "; ".join(_ptxas_lines(tag)))
 
 
 def _outputs(out) -> tuple:
@@ -365,19 +396,52 @@ def _device_ms(fn, reps: int) -> float:
         raise SmokeFailure(str(e)) from e
 
 
-def _cluster_sweep(what, launch, n, nc, sizes, reps=50):
-    """Device time of the GN kernel at other cluster sizes (the launch rule
-    picks one); returns {C: ms}."""
+SPREAD_SWEEP = ((4, 8, 16), (2, 4, 8, 16, 30))  # (C, G) of the spread kernel's sweep
+
+
+def _cluster_sweep(what, launch, n, nc, sizes, spread=False, reps=50):
+    """Device time of the GN kernel at other shapes than the launch rule's:
+    one cluster of each C in `sizes`, and with `spread` (one stream) G
+    clusters of C CTAs for each (C, G) of SPREAD_SWEEP (the spread kernel).
+    A shape with a CTA without queries is skipped; one whose clusters the
+    card cannot hold at once must raise before it launches. Returns
+    {"C=c,G=g": ms or None}."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops.kernels import _common, icp_gn
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = [(1, *icp_gn.cluster_shape(n, c), False) for c in sizes]
+    for g in SPREAD_SWEEP[1] if spread else ():
+        for c in SPREAD_SWEEP[0]:
+            try:
+                shapes.append(icp_gn.spread_split(n, nc, g, c, icp_gn.spread_limits(dev, c)[1]))
+            except ValueError:
+                pass  # more CTAs than warps of queries
+    times = {}
+    for shape in shapes:
+        key = f"C={shape[1]},G={shape[0]}"
+        before = dict(_common.LAUNCHES)
+        try:
+            launch(shape)
+        except RuntimeError as e:
+            _require("cannot all be resident" in str(e), f"{what} {key}: {e}")
+            _require(_common.LAUNCHES == before, f"{what} {key}: launched although it raised")
+            times[key] = None
+            continue
+        times[key] = _device_ms(lambda: launch(shape), reps)
+    print(f"{what}: device ms/launch by shape " + "  ".join(
+        f"{k}: {'not co-resident (raised)' if ms is None else f'{ms:.4f}'}"
+        for k, ms in times.items()) +
+        f"  (rule: {_shape_label(icp_gn.device_shape(n, nc, dev) if spread else None, n, nc)})")
+    return times
+
+
+def _shape_label(shape, n, nc) -> str:
     from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
 
-    times = {}
-    for c in sizes:
-        shape = icp_gn.cluster_shape(n, c)
-        times[shape[0]] = _device_ms(lambda: launch(shape), reps)
-    print(f"{what}: device ms/launch by cluster size " +
-          "  ".join(f"C={c}: {ms:.4f}" for c, ms in times.items()) +
-          f"  (rule: C={icp_gn.launch_shape(n, nc)[0]})")
-    return times
+    g, c = shape[:2] if shape else (1, icp_gn.launch_shape(n, nc)[0])
+    return f"C={c},G={g}"
 
 
 def bench_cfg(cfgmod, points_per_scan: int, gn_backend: str = "pallas"):
@@ -421,7 +485,7 @@ def _k1_check(what, q, qmask, cand, scal, carry, inner, plain_reps) -> dict:
 
     n, nc = q.shape[1], cand.shape[1]
     shape = f"{n} x {nc}"
-    c = _gn_cluster(f"{what} ({shape})", n, nc)
+    launch_shape = _gn_cluster(f"{what} ({shape})", n, nc)
     fn = lambda: icp_gn.fused_gn_carry(q, qmask, cand, scal, carry, inner)  # noqa: E731
     plain = lambda: icp_gn.fused_gn_carry_ref(q, qmask, cand, scal, carry, inner)  # noqa: E731
     row = _same_twice(what, fn)
@@ -445,10 +509,10 @@ def _k1_check(what, q, qmask, cand, scal, carry, inner, plain_reps) -> dict:
           f"plain {plain_ms:.4f} ms/call  bound {bound:.5f} ms ({by})")
     sweep = _cluster_sweep(f"{what} ({shape})", lambda sh: icp_gn._launch(
         "fused_gn_carry", q, qmask, cand, scal, carry, inner, 1, (16,), shape=sh), n, nc,
-        (4, 8, 16))
-    return dict(row=row, max_abs_err=max(err_R, err_t), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, device_ms=dev_ms, cluster=c,
-                iterations=float(a[14]), device_ms_by_cluster=sweep)
+        (4, 8, 16), spread=True)
+    return dict(launch_shape, row=row, max_abs_err=max(err_R, err_t), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, device_ms=dev_ms,
+                iterations=float(a[14]), device_ms_by_shape=sweep)
 
 
 def kernel_phase(dev, cfg):
@@ -469,30 +533,40 @@ def kernel_phase(dev, cfg):
     g = voxel_map.fused_downsample(world, torch.ones(n_world, dtype=torch.bool, device=dev),
                                    mcfg.voxel_size, cfg.icp.max_map_points)
     m = voxel_map.insert_grouped(voxel_map.create(mcfg, dev), g, mcfg)
-    n = cfg.icp.max_source_points
-    src = g.points[:n] - torch.tensor([0.25, -0.15, 0.1], device=dev)
-    mask = g.mask[:n]
-    nq = torch.clamp(mask.sum(), min=1).float()
-    anchor = torch.where(mask[:, None], src, torch.zeros_like(src)).sum(0) / nq
-    q = (src - anchor).T.contiguous()
-    cand = voxel_map.gather_candidate_planes_packed(m, src, mask, mcfg, anchor).contiguous()
-    _require(tuple(cand.shape) == (3, 80, n), f"K1 candidates {tuple(cand.shape)}")
-    qmask = mask.float().contiguous()
-    scal = torch.tensor([0.5, 1.5**2, cfg.icp.estimation_threshold, 20.0, 2.0,
-                         (0.5 * mcfg.voxel_size) ** 2, 0.0, 0.0],
-                        dtype=torch.float64, device=dev)
-    carry = torch.cat([torch.eye(3, dtype=torch.float64, device=dev).reshape(9),
-                       torch.zeros(3, dtype=torch.float64, device=dev),
-                       anchor.double()])
+
+    def inputs(n):
+        src = g.points[:n] - torch.tensor([0.25, -0.15, 0.1], device=dev)
+        mask = g.mask[:n]
+        nq = torch.clamp(mask.sum(), min=1).float()
+        anchor = torch.where(mask[:, None], src, torch.zeros_like(src)).sum(0) / nq
+        q = (src - anchor).T.contiguous()
+        cand = voxel_map.gather_candidate_planes_packed(m, src, mask, mcfg, anchor).contiguous()
+        _require(tuple(cand.shape) == (3, 80, n), f"K1 candidates {tuple(cand.shape)}")
+        scal = torch.tensor([0.5, 1.5**2, cfg.icp.estimation_threshold, 20.0, 2.0,
+                             (0.5 * mcfg.voxel_size) ** 2, 0.0, 0.0],
+                            dtype=torch.float64, device=dev)
+        carry = torch.cat([torch.eye(3, dtype=torch.float64, device=dev).reshape(9),
+                           torch.zeros(3, dtype=torch.float64, device=dev),
+                           anchor.double()])
+        return q, mask.float().contiguous(), cand, scal, carry
+
     print("K1 / K4 / K5 gn_cluster_kernel, ptxas: " + "; ".join(_ptxas_lines("gn_cluster_kernel")))
-    k1 = _k1_check("K1 fused_gn_carry", q, qmask, cand, scal, carry, cfg.icp.fused_inner, 5)
+    _spread_ptxas()
+    k1 = _k1_check("K1 fused_gn_carry", *inputs(cfg.icp.max_source_points),
+                   cfg.icp.fused_inner, 5)
+    _require(k1["groups"] == 1, "K1 at 4096 x 80 left the one-cluster kernel")
+    # the kitti_64beam preset's 8192 source points (phases 16-21): spread
+    wide = _k1_check("K1 fused_gn_carry at 8192", *inputs(8192), cfg.icp.fused_inner, 2)
+    _require(wide["groups"] > 1, "K1 at 8192 x 80: one cluster, not spread over several")
     # no single PyTorch call computes a robust GN solve: library_ms is null
     results.append(dict(name="fused_gn_carry", route="cuda",
                         source="lidar_imu_slam_tpu_torch/csrc/icp_gn.cu",
                         replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:383",
                         max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
                         bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
-                        device_ms=k1["device_ms"], cluster=k1["cluster"], ctas=k1["cluster"]))
+                        device_ms=k1["device_ms"], cluster=k1["cluster"], ctas=k1["cluster"],
+                        device_ms_by_shape=k1["device_ms_by_shape"],
+                        at_8192={k: v for k, v in wide.items() if k != "row"}))
 
     return results + pose_chain_phase(dev, cfg, rng, k1["row"])
 
@@ -827,6 +901,7 @@ def slice_phase(dev, cfg, raws, gt):
     print(f"slice: ATE {ate:.4f} m (mid-scan, limit {ATE_LIMIT_M})")
     for name in ("fused_gn_carry", "pose_pre", "pose_post"):
         _require(launches[name] > 0, f"slice: kernel {name} never launched")
+    _require(launches["gn_spread"] == 0, "slice: K1 at 4096 x 80 left the one-cluster kernel")
     _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
              "slice: pose kernels did not run once per scan")
     _require(ate <= ATE_LIMIT_M, f"slice: ATE {ate:.4f} m above {ATE_LIMIT_M}")
@@ -904,6 +979,8 @@ def batched_kernel_phase(dev, cfg, cfgmod):
 
     one = tuple(t[0].contiguous() for t in hdl)
     c4 = _gn_cluster("K4 fused_gn (1 x 4096 x 80)", one[0].shape[-1], one[2].shape[-2])
+    _require(c4["groups"] == 1, "K4 at 4096 x 80 left the one-cluster kernel")
+    c4 = c4["cluster"]
     rows4 = _same_twice("K4", lambda: icp_gn.fused_gn(*one, inner))
     err4, _ = _rows_err(rows4, icp_gn.fused_gn_ref(*one, inner), "K4 fused_gn (1 x 4096 x 80)")
     ms4 = _cuda_ms(lambda: icp_gn.fused_gn(*one, inner), 50)
@@ -917,7 +994,7 @@ def batched_kernel_phase(dev, cfg, cfgmod):
     for name, args, sizes in (("8 x 4096 x 80", hdl, (4, 8, 16)),
                               ("256 x 512 x 16", mc, (1, 2, 4))):
         n_st, n, nc = args[0].shape[0], args[0].shape[-1], args[2].shape[-2]
-        shapes[name] = _gn_cluster(f"K5 fused_gn_batched ({name})", n, nc, n_st)
+        shapes[name] = _gn_cluster(f"K5 fused_gn_batched ({name})", n, nc, n_st)["cluster"]
         rows = _same_twice(f"K5 ({name})", lambda: icp_gn.fused_gn_batched(*args, inner))
         err, iters = _rows_err(rows, icp_gn.fused_gn_batched_ref(*args, inner),
                                f"K5 fused_gn_batched ({name})")
@@ -2513,8 +2590,14 @@ def profiling_phase(dev, cfg, msgs):
         with profiling.annotate("backend.optimize"), timer.stage("backend.optimize"):
             return optimize(self)
 
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
+
     ranges = ("runner.run", "kiss_icp.step", "backend.optimize")
-    kernels = ("gn_cluster_kernel", "pose_pre_kernel", "pose_post_kernel")
+    # K1's kernel at this preset's shape (8192 x 80: spread over clusters)
+    nc = cfg.map.neighborhood * cfg.map.packed_width
+    k1 = ("gn_spread_kernel" if icp_gn.device_shape(cfg.icp.max_source_points, nc, dev)[0] > 1
+          else "gn_cluster_kernel")
+    kernels = (k1, "pose_pre_kernel", "pose_post_kernel")
     with tempfile.TemporaryDirectory() as tmp:
         kiss_icp.register_frame_step = traced_step
         keyframes.OnlineBackend.optimize = traced_optimize
@@ -2972,8 +3055,9 @@ def _dense_hand_loop(dev, cfg, raws, gt):
           f"drops {int(col['window_drops'].sum())}; map drops {drops}; tombstones "
           f"{int(state.map.tombstones)}; final map voxels {stats['map_voxels']}; peak memory "
           f"{peak:.1f} MiB")
-    print(f"dense (a): launches K1 {launches['fused_gn_carry']}  K2 {launches['pose_pre']}  "
-          f"K3 {launches['pose_post']}  (all {launches})")
+    print(f"dense (a): launches K1 {launches['fused_gn_carry']} (over several clusters: "
+          f"{launches['gn_spread']})  K2 {launches['pose_pre']}  K3 {launches['pose_post']}  "
+          f"(all {launches})")
     print(_reads_ops_line("dense (a)", counts))
     _require(drops == 0 and not col["window_drops"].any(), "dense: drops or window drops")
     _require(bool((col["num_correspondences"][1:] > DENSE_MIN_CORR).all()),
@@ -2981,6 +3065,8 @@ def _dense_hand_loop(dev, cfg, raws, gt):
     _require(err.max() < DENSE_ERR_LIMIT_M,
              f"dense: position error {err.max():.4f} m at or above {DENSE_ERR_LIMIT_M}")
     _require(launches["fused_gn_carry"] > 0, "dense: K1 never launched")
+    _require(launches["gn_spread"] == launches["fused_gn_carry"],
+             "dense: a K1 launch at 16,384 x 80 stayed on one cluster")
     _require(launches["pose_pre"] == DENSE_SCANS and launches["pose_post"] == DENSE_SCANS,
              "dense: K2 / K3 did not run once per scan")
     return stats, hand, launches["fused_gn_carry"]
@@ -3040,8 +3126,9 @@ def _dense_k1(args) -> dict:
     q, qmask, cand, scal, carry, inner = args
     n, nc = q.shape[1], cand.shape[1]
     _require((n, nc) == (16384, 80), f"dense: K1 at {n} x {nc}, not 16384 x 80")
-    print("dense K1, ptxas: " + "; ".join(_ptxas_lines("gn_cluster_kernel")))
+    _spread_ptxas()
     k1 = _k1_check("dense K1", q, qmask, cand, scal, carry, inner, 3)
+    _require(k1["groups"] > 1, "dense K1: one cluster, not spread over several")
     del k1["row"]
     return dict(k1, n=n, nc=nc)
 
@@ -3080,6 +3167,14 @@ def dense_phase(dev) -> dict:
     runner = _dense_runner(dev, cfg, msgs, hand)
     print(f"dense: phase {time.perf_counter() - t0:.1f} s")
     return dict(stats, k1=dict(k1, launches=k1_launches), k1_ms=k1["ms"],
+                spread=dict(name="gn_spread", route="cuda",
+                            source="lidar_imu_slam_tpu_torch/csrc/icp_gn.cu",
+                            replaces=f"{REFERENCE_PKG}/ops/pallas/icp_gn.py:383",
+                            **{k: k1[k] for k in (
+                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "device_ms", "groups", "cluster", "per_cta", "smem",
+                                "active_clusters", "device_ms_by_shape")},
+                            library_ms=None, launches=k1_launches),
                 k1_device_ms=k1["device_ms"], runner_scans_per_s=runner["scans_per_s"],
                 runner_host_reads_per_scan=runner["host_reads_per_scan"])
 
@@ -3226,6 +3321,8 @@ def main(argv=None) -> int:
     launches, fast = slice_phase(dev, cfg, raws, gt)
     launches.update(probe_launches)
     dense = dense_phase(dev)  # phase 23
+    kernels.append(dense["spread"])  # K1 over several clusters
+    launches["gn_spread"] = dense["spread"]["launches"]  # phase 23's drive
     lio = lio_slice_phase(dev, cfg, raws, gt)
     state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
     launches["nn_bruteforce"] = nn_on_path_phase(dev, cfg64, state64, out64)

@@ -19,6 +19,21 @@ rank 0 in rank order (repeated launches give bit-equal rows) and take the
 solve from it, one launch per ICP round. K1 and K4 are its launches with
 one stream, K1 with the carry epilogue.
 
+A single stream too large for one cluster (N x NC above MAX_CLUSTER x
+SLOTS_PER_CTA, as the dense preset's 16,384 x 80) spreads over G clusters
+of C CTAs instead (`spread_shape`; `gn_spread_kernel`): 128-160 queries
+a CTA at the dense shape, two threads a query, the CTA's candidate slice
+copied once into shared memory where it fits. Each iteration the
+clusters' rank-0 CTAs write their sums to a per-launch scratch slot and
+meet at a G-party barrier in global memory; each then adds the G sums in
+cluster order and runs the same solve, so every cluster holds the same
+state bit for bit and leaves the loop in the same iteration. G is capped
+at the clusters the card holds at once (cudaOccupancyMaxActiveClusters,
+cached per device): a barrier among clusters that are not all resident
+would never complete, so a forced shape above the cap raises before it
+launches. Where the rule gives G = 1 (K1 and K4 at 4096 x 80, every K5
+launch) the launch is the one-cluster kernel above.
+
 Layouts (K1 and K4; K5 adds a leading S to q, qmask, cand and scal):
   q      (3, N) f32       queries centred on the anchor
   qmask  (N,) f32         1.0 = valid query
@@ -46,9 +61,19 @@ F32 = torch.float32
 F64 = torch.float64
 SLOTS_PER_CTA = 256 * 80  # query-slot pairs a CTA reads per iteration (245 KB)
 MAX_CLUSTER = 16  # kMaxCluster in csrc/icp_gn.cu (above 8: a non-portable size)
+MAX_GROUPS = 32  # kMaxGroups in csrc/icp_gn.cu: clusters a spread stream
+SPREAD_QUERIES = 128  # queries a CTA of a spread stream (a thread pair each)
+SPREAD_CLUSTERS = (8, 16)  # C of a spread stream, in the order tried
+# a CTA's dynamic shared memory for its slice: the 227 KB a block may opt
+# into on an H100 less the spread kernel's static workspace, 9,216 bytes
+# (on the card: the budget `spread_limits` reads)
+SMEM_BUDGET = 232_448 - 9_216
 
 _fn = None  # the launcher of K1, K4 and K5
+_spread_fn = None  # the launcher of the spread kernel (K1 / K4, G >= 2)
 _cluster_ok: set[tuple[int, int]] = set()  # (device, C) shapes checked resident
+_spread_active: dict[tuple, tuple[int, int]] = {}  # (device, C, NC, per CTA, resident) -> limits
+_shapes: dict[tuple, tuple[int, int, int, bool]] = {}  # (device, N, NC) -> device_shape
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -69,6 +94,53 @@ def launch_shape(n: int, nc: int) -> tuple[int, int]:
     SLOTS_PER_CTA query-slot pairs per CTA (256 queries at the main path's
     80 slots), at most MAX_CLUSTER CTAs. (C, queries per CTA)."""
     return cluster_shape(n, min(MAX_CLUSTER, _cdiv(max(int(n) * int(nc), 1), SLOTS_PER_CTA)))
+
+
+def slab_bytes(per_cta: int, nc: int) -> int:
+    """Dynamic shared memory of a CTA whose slice of at most `per_cta`
+    queries x NC slots is resident: 3 planes of 2 ceil(NC / 2) rows of
+    per_cta f32 and 32 of padding (`slab_bytes` in csrc/icp_gn.cu)."""
+    return 4 * 3 * (2 * _cdiv(nc, 2) * per_cta + 32)
+
+
+def spread_split(n: int, nc: int, groups: int, clusters: int,
+                 smem: int = SMEM_BUDGET) -> tuple[int, int, int, bool]:
+    """One stream of N queries over `groups` clusters of `clusters` CTAs:
+    (G, C, at most this many queries a CTA, resident). CTA b takes the
+    whole warps [b W / K, (b + 1) W / K) of the W = ceil(N / 32) warps of
+    queries (K = G x C), so none is empty when K <= W (else ValueError);
+    `resident`: that slice fits `smem` bytes of shared memory."""
+    n, nc = max(int(n), 1), max(int(nc), 1)
+    warps, ctas = _cdiv(n, 32), groups * clusters
+    if not (1 <= clusters <= MAX_CLUSTER and 1 <= groups <= MAX_GROUPS and ctas <= warps):
+        raise ValueError(f"fused GN: {groups} clusters of {clusters} CTAs for {n} queries "
+                         f"({warps} warps): a CTA without queries, a cluster above "
+                         f"{MAX_CLUSTER} CTAs or more than {MAX_GROUPS} clusters")
+    per = _cdiv(warps, ctas) * 32
+    return groups, clusters, per, slab_bytes(per, nc) <= smem
+
+
+def spread_shape(n: int, nc: int, active: dict[int, int],
+                 smem: int = SMEM_BUDGET) -> tuple[int, int, int, bool]:
+    """The launch of one stream of N queries x NC slots: (G, C, queries a
+    CTA at most, resident). G = 1 is `launch_shape`'s single cluster (the
+    one-cluster kernel), taken while one cluster of MAX_CLUSTER CTAs reads
+    at most SLOTS_PER_CTA pairs a CTA. Beyond that, for each C of
+    SPREAD_CLUSTERS in turn: enough clusters for about SPREAD_QUERIES
+    queries a CTA, at most `active[C]` (the clusters the card holds at
+    once), at least 2; the first C whose slice is resident wins, else the
+    first that spreads at all, else G = 1."""
+    n, nc = max(int(n), 1), max(int(nc), 1)
+    single = (1, *launch_shape(n, nc), False)
+    if n * nc <= MAX_CLUSTER * SLOTS_PER_CTA:
+        return single
+    spread = []
+    for c in SPREAD_CLUSTERS:
+        g = min(active.get(c, 0), _cdiv(_cdiv(n, SPREAD_QUERIES), c), _cdiv(n, 32) // c,
+                MAX_GROUPS)
+        if g >= 2:
+            spread.append(spread_split(n, nc, g, c, smem))
+    return next((s for s in spread if s[3]), spread[0] if spread else single)
 
 
 def _kernel():
@@ -92,6 +164,36 @@ def max_active_clusters(clusters: int) -> int:
     active = ctypes.c_int(0)
     _build.check(fn(clusters, ctypes.byref(active)), f"fused GN cluster check (C = {clusters})")
     return active.value
+
+
+def spread_limits(device: torch.device, clusters: int, nc: int = 0, per_cta: int = 0,
+                  resident: bool = True) -> tuple[int, int]:
+    """(how many clusters of `clusters` CTAs of the spread kernel the card
+    holds at once, the shared memory a CTA's slice may take), cached per
+    device: at per_cta queries x NC slots a CTA, the resident variant or
+    the other; per_cta = 0: the most a CTA can take (one CTA an SM)."""
+    key = (device.index, clusters, nc, per_cta, resident)
+    if key not in _spread_active:
+        fn = _build.load().lis_gn_spread_check
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        active, budget = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(fn(clusters, nc, per_cta, int(resident), ctypes.byref(active),
+                            ctypes.byref(budget)), f"spread GN check (C = {clusters})")
+        _spread_active[key] = (active.value, budget.value)
+    return _spread_active[key]
+
+
+def device_shape(n: int, nc: int, device: torch.device) -> tuple[int, int, int, bool]:
+    """`spread_shape` at the card's limits: the launch of one stream of N x
+    NC on `device` (cached)."""
+    key = (device.index, n, nc)
+    if key not in _shapes:
+        limits = {c: spread_limits(device, c) for c in SPREAD_CLUSTERS}
+        budget = min(b for _, b in limits.values())
+        _shapes[key] = spread_shape(n, nc, {c: a for c, (a, _) in limits.items()}, budget)
+    return _shapes[key]
 
 
 def _check_cluster(device: torch.device, clusters: int) -> None:
@@ -276,12 +378,22 @@ fused_gn_ref = fused_gn_batched_ref
 
 
 def _launch(name, q, qmask, cand, scal, carry, n_inner, streams, out_shape, shape=None):
-    """Launch the cluster kernel: `streams` clusters of `shape` (default
-    `launch_shape(N, NC)`) on CUDA tensors; carry None for K4 / K5."""
+    """Launch a GN kernel on CUDA tensors (carry None for K4 / K5) at
+    `shape` = (G, C, queries a CTA, resident), by default `device_shape`
+    for one stream and `launch_shape`'s cluster a stream for several: G = 1
+    the cluster kernel, `streams` clusters of C; G >= 2 (one stream) the
+    spread kernel."""
     fn = _kernel()
     expect_cuda(*(t for t in (q, qmask, cand, scal, carry) if t is not None))
     n, nc = q.shape[-1], cand.shape[-2]
-    clusters, per_cta = shape or launch_shape(n, nc)
+    if shape is None:
+        shape = (device_shape(n, nc, q.device) if streams == 1
+                 else (1, *launch_shape(n, nc), False))
+    if shape[0] > 1:
+        if streams != 1:
+            raise ValueError(f"{name}: {shape[0]} clusters a stream for {streams} streams")
+        return _launch_spread(name, q, qmask, cand, scal, carry, n_inner, shape)
+    _, clusters, per_cta, _ = shape
     _check_cluster(q.device, clusters)
     out = torch.empty(out_shape, dtype=F64, device=q.device)
     status = fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(),
@@ -289,6 +401,41 @@ def _launch(name, q, qmask, cand, scal, carry, n_inner, streams, out_shape, shap
                 streams, clusters, per_cta, out.data_ptr(), stream_handle(q.device))
     _build.check(status, name)
     LAUNCHES[name] += 1
+    return out
+
+
+def _launch_spread(name, q, qmask, cand, scal, carry, n_inner, shape):
+    """The spread kernel at `shape` = (G >= 2, C, queries a CTA, resident):
+    raises RuntimeError before launching unless all G clusters can be
+    resident at once (the G-party barrier would never complete)."""
+    global _spread_fn
+    groups, clusters, per_cta, resident = shape
+    n, nc = q.shape[-1], cand.shape[-2]
+    smem = slab_bytes(per_cta, nc) if resident else 0
+    active, budget = spread_limits(q.device, clusters, nc, per_cta, resident)
+    if smem > budget:
+        raise ValueError(f"{name}: a resident slice of {per_cta} x {nc} needs {smem} bytes of "
+                         f"shared memory, above the {budget} a CTA may take")
+    if groups > active:
+        raise RuntimeError(f"{name}: {groups} clusters of {clusters} CTAs cannot all be "
+                           f"resident on {torch.cuda.get_device_name(q.device)} (at most "
+                           f"{active}); the clusters' barrier would never complete")
+    if _spread_fn is None:
+        fn = _build.load().lis_fused_gn_spread
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 5 + [i] * 7 + [vp, vp, vp]
+        fn.restype = ctypes.c_int
+        _spread_fn = fn
+    # the barrier's counter (word 0) and the clusters' sums, this launch's own
+    scratch = torch.zeros(1 + int(n_inner) * groups * 18, dtype=F64, device=q.device)
+    out = torch.empty((OUT_WIDTH,), dtype=F64, device=q.device)
+    status = _spread_fn(q.data_ptr(), qmask.data_ptr(), cand.data_ptr(), scal.data_ptr(),
+                        None if carry is None else carry.data_ptr(), n, nc, int(n_inner), groups,
+                        clusters, per_cta, int(resident), scratch.data_ptr(), out.data_ptr(),
+                        stream_handle(q.device))
+    _build.check(status, name)
+    LAUNCHES[name] += 1
+    LAUNCHES["gn_spread"] += 1
     return out
 
 

@@ -13,7 +13,10 @@ delta bit-equal to the kernel's own f64 delta rounded to f32, and a
 repeated launch bit-equal; K1,
 K4 and K5 R 1e-5 and t 1e-4 m, iterations and flags equal, n_corr within
 1 (the f32 per-query work may contract into FMAs in the kernel), and a
-repeated launch bit-equal (the cluster's fixed-order reduction); K6
+repeated launch bit-equal (the cluster's fixed-order reduction; K1 / K4
+over G > 1 clusters at 16,384 and 9,000 queries, the clusters' sums added
+in cluster order), and a shape of more clusters than the card holds at
+once raising before it launches; K6
 indices equal and d^2 bit-equal (its exact re-check rounds every f32 step
 as the plain version does; its filter only decides which entries are
 re-checked), on random pools and on every case of tools/nn_cases.py; card against CPU poses 1e-4 over a short drive,
@@ -154,13 +157,16 @@ def _twice(fn, *args):
 
 
 def _k1_inputs(dev, n, offset):
-    """A map of 4096 uniform points, its first n points shifted by (0.25,
-    -0.15, 0.1) as the source, centred on their mean."""
-    cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 13, neighborhood=8)
+    """A map of max(4096, n) uniform points, its first n points shifted by
+    (0.25, -0.15, 0.1) as the source, centred on their mean."""
+    n_world = max(4096, n)
+    cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0,
+                           capacity=1 << (13 if n_world == 4096 else 15), neighborhood=8)
     rng = np.random.default_rng(0)
-    world = torch.from_numpy(rng.uniform(-18, 18, (4096, 3)).astype(np.float32) + offset).to(dev)
-    g = voxel_map.fused_downsample(world, torch.ones(4096, dtype=torch.bool, device=dev),
-                                   cfg.voxel_size, 4096)
+    world = torch.from_numpy(rng.uniform(-18, 18, (n_world, 3)).astype(np.float32) + offset)
+    world = world.to(dev)
+    g = voxel_map.fused_downsample(world, torch.ones(n_world, dtype=torch.bool, device=dev),
+                                   cfg.voxel_size, n_world)
     m = voxel_map.insert_grouped(voxel_map.create(cfg, dev), g, cfg)
     src = world[:n] - torch.tensor([0.25, -0.15, 0.1], device=dev)
     anchor = src.mean(0)
@@ -173,15 +179,20 @@ def _k1_inputs(dev, n, offset):
     return q, mask.float(), cand, scal, carry
 
 
-# N: the test's 1024, one CTA (128), a ragged last CTA (1000), the main path
-@pytest.mark.parametrize("n", [1024, 128, 1000, 4096])
+# N: the test's 1024, one CTA (128), a ragged last CTA (1000), the main
+# path; the dense path's 16,384 and a ragged 9,000, both over G > 1
+# clusters (the spread kernel)
+@pytest.mark.parametrize("n", [1024, 128, 1000, 4096, 16384, 9000])
 @pytest.mark.parametrize("offset", [0.0, 300.0])
 @pytest.mark.parametrize("n_inner", [1, 6])
 def test_fused_gn_carry_kernel_matches_plain(dev, offset, n_inner, n):
     q, qm, cand, scal, carry = _k1_inputs(dev, n, offset)
-    before = _common.LAUNCHES["fused_gn_carry"]
+    spread = n > 4096
+    assert (icp_gn.device_shape(n, cand.shape[1], dev)[0] > 1) == spread
+    before = dict(_common.LAUNCHES)
     row = _twice(icp_gn.fused_gn_carry, q, qm, cand, scal, carry, n_inner).cpu().numpy()
-    assert _common.LAUNCHES["fused_gn_carry"] == before + 2
+    assert _common.LAUNCHES["fused_gn_carry"] == before["fused_gn_carry"] + 2
+    assert _common.LAUNCHES["gn_spread"] == before["gn_spread"] + 2 * spread
     ref = icp_gn.fused_gn_carry_ref(q, qm, cand, scal, carry, n_inner).cpu().numpy()
     np.testing.assert_allclose(row[:9], ref[:9], atol=1e-5)
     np.testing.assert_allclose(row[9:12], ref[9:12], atol=1e-4)
@@ -195,7 +206,8 @@ def _gn_streams(dev, n_streams, n, seed=0):
     """Per-stream maps, shifted sources and kernel scalars (stream s
     shifted and weighted differently, so the streams stop at different
     iteration counts)."""
-    cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 13, neighborhood=8)
+    cfg = cfgmod.MapConfig(voxel_size=1.0, max_range=40.0,
+                           capacity=1 << (13 if n <= 4096 else 16), neighborhood=8)
     rng = np.random.default_rng(seed)
     world = torch.from_numpy(rng.uniform(-18, 18, (n_streams, 4 * n, 3)).astype(np.float32))
     world = world.to(dev)
@@ -223,13 +235,14 @@ def _check_rows(rows, ref):
     assert np.abs(rows[:, 12] - ref[:, 12]).max() <= 1
 
 
-@pytest.mark.parametrize("n", [1024, 128, 1000, 4096])
+@pytest.mark.parametrize("n", [1024, 128, 1000, 4096, 16384])
 @pytest.mark.parametrize("n_inner", [1, 4])
 def test_fused_gn_kernel_matches_plain(dev, n_inner, n):
     q, qm, cand, scal = (t[0].contiguous() for t in _gn_streams(dev, 1, n))
-    before = _common.LAUNCHES["fused_gn"]
+    before = dict(_common.LAUNCHES)
     row = _twice(icp_gn.fused_gn, q, qm, cand, scal, n_inner)
-    assert _common.LAUNCHES["fused_gn"] == before + 2
+    assert _common.LAUNCHES["fused_gn"] == before["fused_gn"] + 2
+    assert _common.LAUNCHES["gn_spread"] == before["gn_spread"] + 2 * (n > 4096)
     _check_rows(row, icp_gn.fused_gn_ref(q, qm, cand, scal, n_inner))
 
 
@@ -245,13 +258,27 @@ def test_fused_gn_batched_kernel_matches_plain(dev, n_streams, n):
     assert len(set(ref[:, 14].tolist())) > 1  # streams stopped at different counts
 
 
+def _second_cta(n, nc, dev, streams):
+    """The queries of CTA 1 of a stream's launch (its shape from the
+    launch rule)."""
+    g, c, per, _ = (icp_gn.device_shape(n, nc, dev) if streams == 1
+                    else (1, *icp_gn.launch_shape(n, nc), False))
+    if g == 1:
+        return per, 2 * per
+    warps, ctas = -(-n // 32), g * c
+    return warps // ctas * 32, 2 * warps // ctas * 32
+
+
 @pytest.mark.parametrize("case", ["cta_masked", "all_masked", "stale"])
-@pytest.mark.parametrize("kernel", ["fused_gn_carry", "fused_gn", "fused_gn_batched"])
-def test_gn_kernel_edge_cases_match_plain(dev, kernel, case):
-    """At N = 4096 (16 CTAs a stream): the second CTA's whole slice masked
-    out; every query masked (frozen after one iteration at the identity);
-    a stale bound below the first step's drift (frozen stale)."""
-    n = 4096
+@pytest.mark.parametrize("kernel,n", [("fused_gn_carry", 4096), ("fused_gn", 4096),
+                                      ("fused_gn_batched", 4096), ("fused_gn_carry", 16384),
+                                      ("fused_gn", 16384)])
+def test_gn_kernel_edge_cases_match_plain(dev, kernel, n, case):
+    """At N = 4096 (16 CTAs a stream) and, one stream over G > 1 clusters,
+    at 16,384 (every cluster must leave the loop in the same iteration):
+    the second CTA's whole slice masked out; every query masked (frozen
+    after one iteration at the identity); a stale bound below the first
+    step's drift (frozen stale)."""
     if kernel == "fused_gn_carry":
         q, qm, cand, scal, carry = _k1_inputs(dev, n, 0.0)
         args = (q, qm, cand, scal, carry, 6)
@@ -264,10 +291,12 @@ def test_gn_kernel_edge_cases_match_plain(dev, kernel, case):
         else:
             fn, ref_fn = icp_gn.fused_gn_batched, icp_gn.fused_gn_batched_ref
         args = (q, qm, cand, scal, 4)
-    clusters, per = icp_gn.launch_shape(n, cand.shape[-2])
-    assert clusters >= 8
+    streams = q.shape[0] if q.dim() == 3 else 1
+    shape = icp_gn.device_shape(n, cand.shape[-2], dev)
+    assert shape[0] > 1 if n > 4096 else icp_gn.launch_shape(n, cand.shape[-2])[0] >= 8
+    lo, hi = _second_cta(n, cand.shape[-2], dev, streams)
     if case == "cta_masked":
-        qm[..., per:2 * per] = 0.0
+        qm[..., lo:hi] = 0.0
     elif case == "all_masked":
         qm.zero_()
     else:
@@ -285,6 +314,27 @@ def test_gn_kernel_edge_cases_match_plain(dev, kernel, case):
         np.testing.assert_array_equal(row.cpu().numpy().reshape(-1, 16)[:, 9:12], 0.0)
     elif case == "stale":
         assert (flat[:, 15] == 2).all()
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_gn_spread_raises_beyond_co_residency(dev, resident):
+    """A forced shape of more clusters than the card holds at once raises
+    before it launches (its barrier would never complete)."""
+    q, qm, cand, scal, carry = _k1_inputs(dev, 16384, 0.0)
+    nc = cand.shape[1]
+    budget = icp_gn.spread_limits(dev, 16)[1]
+    g = icp_gn.spread_limits(dev, 16)[0] if resident else 1
+    for _ in range(3):  # G such that the shape's own cap is below it
+        shape = icp_gn.spread_split(16384, nc, g + 1, 16, budget)[:3] + (resident,)
+        g = icp_gn.spread_limits(dev, 16, nc, shape[2], resident)[0]
+        if g < shape[0]:
+            break
+    assert g < shape[0]
+    before = dict(_common.LAUNCHES)
+    with pytest.raises(RuntimeError, match="cannot all be resident"):
+        icp_gn._launch("fused_gn_carry", q, qm, cand, scal, carry, 6, 1, (16,), shape=shape)
+    torch.cuda.synchronize()
+    assert _common.LAUNCHES == before
 
 
 def test_batched_drive_card_matches_cpu(dev):
