@@ -144,9 +144,11 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    card through the classic f64 path against the port's numpy oracle copy
    (`match_jax`): scans 0-7 under 1e-4 m / rad, max 5e-2 m, median 1e-3 m;
 19. profiling: `utils/profiling.device_trace` round three scans of the
-   phase-16 runner with `annotate` ranges: the trace names
-   `gn_cluster_kernel`, `pose_pre_kernel`, `pose_post_kernel` and every
-   range; `StageTimer.report()`;
+   phase-16 runner: the trace names the fast path's kernels (K1, K2, K3)
+   and the port's own spans (`kiss_icp.step` holding deskew, downsample,
+   source, `icp.register` with its fetches and GN calls, insert, evict;
+   `backend.optimize`), each step span holds its children, and the span
+   gate reads true under `emit_nvtx`;
 20. native: `host/native.py` builds (g++), packs three of the circuit's
    scans like `preprocess_scan` on the card (masks equal, xyz 1e-6, rel_t
    1e-9 + 1e-7 relative, test_native.py's bar), keeps the first point of a
@@ -2569,62 +2571,62 @@ def oracle_phase(dev):
 
 def profiling_phase(dev, cfg, msgs):
     """Phase 19: `utils/profiling.device_trace` around three scans of the
-    phase-16 runner (the backend on), with `annotate` ranges round the run,
-    each step and each optimize(); the exported trace must name the fast
-    path's kernels and every range. StageTimer's report of the same."""
+    phase-16 runner (the backend on). The exported trace must name the fast
+    path's kernels and the spans the port opens itself (`annotate` on the
+    step's layers), each step's spans inside its `kiss_icp.step`; the span
+    gate must read true under `emit_nvtx`, whose NVTX ranges are the
+    spans' own `record_function` ranges."""
     import tempfile
 
-    from lidar_imu_slam_tpu_torch.host import keyframes
+    import torch
+
     from lidar_imu_slam_tpu_torch.host import runner as runner_mod
-    from lidar_imu_slam_tpu_torch.models import kiss_icp
+    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
     from lidar_imu_slam_tpu_torch.utils import profiling
 
-    timer = profiling.StageTimer()
-    step, optimize = kiss_icp.register_frame_step, keyframes.OnlineBackend.optimize
-
-    def traced_step(*a, **kw):
-        with profiling.annotate("kiss_icp.step"), timer.stage("kiss_icp.step"):
-            return step(*a, **kw)
-
-    def traced_optimize(self):
-        with profiling.annotate("backend.optimize"), timer.stage("backend.optimize"):
-            return optimize(self)
-
-    from lidar_imu_slam_tpu_torch.ops.kernels import icp_gn
-
-    ranges = ("runner.run", "kiss_icp.step", "backend.optimize")
+    step_spans = ("kiss_icp.deskew", "voxel_map.downsample", "kiss_icp.source",
+                  "icp.register", "icp.fetch", "icp.gn", "voxel_map.insert", "voxel_map.evict")
+    spans = ("runner.run", "kiss_icp.step", "backend.optimize") + step_spans
     # K1's kernel at this preset's shape (8192 x 80: spread over clusters)
     nc = cfg.map.neighborhood * cfg.map.packed_width
     k1 = ("gn_spread_kernel" if icp_gn.device_shape(cfg.icp.max_source_points, nc, dev)[0] > 1
           else "gn_cluster_kernel")
     kernels = (k1, "pose_pre_kernel", "pose_post_kernel")
     with tempfile.TemporaryDirectory() as tmp:
-        kiss_icp.register_frame_step = traced_step
-        keyframes.OnlineBackend.optimize = traced_optimize
-        try:
-            r = runner_mod.OdometryRunner(cfg, device=dev)
-            t0 = time.perf_counter()
-            with profiling.device_trace(tmp) as prof:
-                with profiling.annotate("runner.run"), timer.stage("runner.run"):
-                    r.run(iter(msgs[:3]))
-            wall = time.perf_counter() - t0
-        finally:
-            kiss_icp.register_frame_step = step
-            keyframes.OnlineBackend.optimize = optimize
+        r = runner_mod.OdometryRunner(cfg, device=dev)
+        t0 = time.perf_counter()
+        with profiling.device_trace(tmp) as prof:
+            with profiling.annotate("runner.run"):
+                r.run(iter(msgs[:3]))
+        wall = time.perf_counter() - t0
         with open(os.path.join(tmp, "trace.json")) as f:
             trace = json.load(f)
         size = os.path.getsize(os.path.join(tmp, "trace.json"))
-    names = [e.get("name", "") for e in trace.get("traceEvents", [])]
-    cats = collections.Counter(e.get("cat", "") for e in trace.get("traceEvents", []))
-    found = {k: sum(k in nm for nm in names) for k in kernels + ranges}
+    events = trace.get("traceEvents", [])
+    names = [e.get("name", "") for e in events]
+    cats = collections.Counter(e.get("cat", "") for e in events)
+    found = {k: sum(k in nm for nm in names) for k in kernels}
+    ranges = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            ranges[e["name"]].append((e["ts"], e["ts"] + e.get("dur", 0)))
+    found.update({k: len(ranges[k]) for k in spans + ("preprocess.scan",)})
+    outside = {k: sum(not any(s0 <= s and e <= e0 for s0, e0 in ranges["kiss_icp.step"])
+                      for s, e in ranges[k]) for k in step_spans}
     device_total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    with torch.autograd.profiler.emit_nvtx():
+        nvtx_gate = bool(profiling._profiler_enabled())
     print(f"profiling: device_trace of 3 scans with the backend, {wall:.2f} s with the trace; "
           f"trace {size / 1e6:.1f} MB, {len(names)} events by category "
-          f"{dict(cats.most_common(6))}; events naming each kernel / range {found}; "
-          f"self device time in key_averages {device_total / 1e3:.3f} ms")
-    print("profiling: StageTimer\n" + timer.report())
-    missing = [k for k, c in found.items() if c == 0]
+          f"{dict(cats.most_common(8))}; events naming each kernel / span {found}; "
+          f"step spans outside a kiss_icp.step {outside}; self device time in key_averages "
+          f"{device_total / 1e3:.3f} ms; span gate under emit_nvtx {nvtx_gate}")
+    missing = [k for k in kernels + spans if found[k] == 0]
     _require(not missing, f"profiling: the trace names no {missing}")
+    _require(not any(outside.values()), f"profiling: spans outside their step: {outside}")
+    _require(found["icp.gn"] == found["icp.fetch"] and found["kiss_icp.step"] >= 3,
+             "profiling: each ICP round's fetch and GN call need one span each")
+    _require(nvtx_gate, "profiling: the span gate reads false under emit_nvtx")
 
 
 def native_phase(dev, cfg, msgs, runner_pack_ms):

@@ -32,6 +32,7 @@ from ..models import backend as backend_mod
 from ..ops import icp as icp_ops
 from ..ops import voxel_map
 from ..ops.preprocess import to_device
+from ..utils.profiling import annotate
 
 
 def _log():
@@ -211,6 +212,7 @@ class OnlineBackend:
                     and int(row[17]) >= self.bcfg.verify_min_correspondences):
                 self.loop_edges.append((i, j, row[:16].reshape(4, 4), self.bcfg.loop_weight))
 
+    @annotate("backend.optimize")
     def optimize(self) -> None:
         b = self.bcfg
         # edge capacity: chain edges are mandatory; newest loops win

@@ -43,6 +43,7 @@ from ..ops import icp as icp_ops
 from ..ops import lie, stats, voxel_map
 from ..ops.kernels import pose_chain
 from ..ops.preprocess import Scan
+from ..utils.profiling import annotate
 
 F64 = torch.float64
 
@@ -174,11 +175,12 @@ def register_core(m: voxel_map.VoxelMap, threshold: icp_ops.ThresholdState, move
         world, mask, cfg.map.voxel_size, cfg.icp.max_map_points,
         tau=None if cfg.lidar.sort_by_time else tau,
     )
-    source, source_mask, _, src_drops = voxel_map.first_point_per_voxel(
-        g.points, g.mask, 1.5 * cfg.map.voxel_size, cfg.icp.max_source_points
-    )
-    d_sq = torch.sum((source - tg[..., None, :]) ** 2, dim=-1)
-    source_mask = stats.iqr_inlier_mask(d_sq.to(F64), source_mask)
+    with annotate("kiss_icp.source"):
+        source, source_mask, _, src_drops = voxel_map.first_point_per_voxel(
+            g.points, g.mask, 1.5 * cfg.map.voxel_size, cfg.icp.max_source_points
+        )
+        d_sq = torch.sum((source - tg[..., None, :]) ** 2, dim=-1)
+        source_mask = stats.iqr_inlier_mask(d_sq.to(F64), source_mask)
 
     thr_state, sigma = icp_ops.compute_threshold(
         threshold, moved, cfg.icp.initial_threshold, cfg.icp.min_motion_th,
@@ -257,25 +259,27 @@ def _fast_trunk(state: KissState, deskewed_xyz, mask, tau, guess: torch.Tensor,
         world, mask, cfg.map.voxel_size, cfg.icp.max_map_points,
         tau=None if cfg.lidar.sort_by_time else tau,
     )
-    source, source_mask, _, src_drops = voxel_map.first_point_per_voxel(
-        g.points, g.mask, 1.5 * cfg.map.voxel_size, cfg.icp.max_source_points
-    )
-    d_sq = torch.sum((source - tg[None, :]) ** 2, dim=-1)
-    source_mask = stats.iqr_inlier_mask(d_sq.to(F64), source_mask)
+    with annotate("kiss_icp.source"):
+        source, source_mask, _, src_drops = voxel_map.first_point_per_voxel(
+            g.points, g.mask, 1.5 * cfg.map.voxel_size, cfg.icp.max_source_points
+        )
+        d_sq = torch.sum((source - tg[None, :]) ** 2, dim=-1)
+        source_mask = stats.iqr_inlier_mask(d_sq.to(F64), source_mask)
 
     # ICP on the world-frame source from identity: the result is the
     # correction; pose_post composes corr @ guess
     dev = source.device
-    res = icp_ops.icp_registration_fused_pair(
-        m, source, source_mask,
-        torch.eye(3, dtype=F64, device=dev).reshape(9),
-        torch.zeros(3, dtype=F64, device=dev),
-        max_corresp_dist=3.0 * sigma, kernel_th=sigma / 3.0,
-        map_cfg=cfg.map, max_iterations=cfg.icp.max_iterations,
-        estimation_threshold=cfg.icp.estimation_threshold,
-        min_correspondences=cfg.icp.min_correspondences,
-        max_step_norm=cfg.icp.max_step_norm, n_inner=cfg.icp.fused_inner,
-    )
+    with annotate("icp.register"):
+        res = icp_ops.icp_registration_fused_pair(
+            m, source, source_mask,
+            torch.eye(3, dtype=F64, device=dev).reshape(9),
+            torch.zeros(3, dtype=F64, device=dev),
+            max_corresp_dist=3.0 * sigma, kernel_th=sigma / 3.0,
+            map_cfg=cfg.map, max_iterations=cfg.icp.max_iterations,
+            estimation_threshold=cfg.icp.estimation_threshold,
+            min_correspondences=cfg.icp.min_correspondences,
+            max_step_norm=cfg.icp.max_step_norm, n_inner=cfg.icp.fused_inner,
+        )
     post = pose_chain.pose_post(res.pose, guess, state.pose, state.first_pose,
                                 state.num_poses,
                                 max_model_deviation=cfg.icp.max_model_deviation)
@@ -327,6 +331,7 @@ def fast_state(new_map: voxel_map.VoxelMap, pre: pose_chain.PoseRow,
     )
 
 
+@annotate("kiss_icp.step")
 def _register_frame_fast(state: KissState, scan: Scan, cfg: PipelineConfig,
                          inplace: bool = False):
     """The fast path: pose bookkeeping in kernels K2/K3 around the fused
@@ -335,7 +340,8 @@ def _register_frame_fast(state: KissState, scan: Scan, cfg: PipelineConfig,
     row = pre.row
     # vector deskew driven by the kernel's twist scalars (identity when the
     # kernel gated them to zero)
-    deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, row[16:29])
+    with annotate("kiss_icp.deskew"):
+        deskewed_xyz = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, row[16:29])
     core = _fast_trunk(state, deskewed_xyz, scan.mask, scan.tau, row, row[12], cfg,
                        inplace=inplace)
     new_state = fast_state(core.new_map, pre, core.post)
@@ -358,6 +364,7 @@ def _register_frame_fast(state: KissState, scan: Scan, cfg: PipelineConfig,
     return new_state, out
 
 
+@annotate("kiss_icp.step")
 def register_frame_classic(state: KissState, scan: Scan, cfg: PipelineConfig,
                            inplace: bool = False):
     """The classic branch of `register_frame` (JAX kiss_icp.py:463-514) on
@@ -367,9 +374,11 @@ def register_frame_classic(state: KissState, scan: Scan, cfg: PipelineConfig,
     dev = scan.xyz.device
     lead = scan.mask.shape[:-1]
     if cfg.icp.deskew:
-        deskewed = deskew_ops.constant_velocity_deskew_fast(
-            scan.xyz, scan.tau, state.pose_prev, state.pose)
-        deskewed_xyz = torch.where((state.num_poses > 2)[..., None, None], deskewed, scan.xyz)
+        with annotate("kiss_icp.deskew"):
+            deskewed = deskew_ops.constant_velocity_deskew_fast(
+                scan.xyz, scan.tau, state.pose_prev, state.pose)
+            deskewed_xyz = torch.where((state.num_poses > 2)[..., None, None], deskewed,
+                                       scan.xyz)
     else:
         deskewed_xyz = scan.xyz
     last_pose = _where(state.num_poses == 0, _eye4(dev, lead), state.pose)

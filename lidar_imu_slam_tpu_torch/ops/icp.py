@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import IcpConfig, MapConfig
+from ..utils.profiling import annotate
 from . import lie, voxel_map
 from .kernels import icp_gn
 
@@ -241,11 +242,14 @@ def icp_registration_fused_pair(
         anchor = torch.stack([torch.sum(torch.where(mask, c, torch.zeros_like(c)))
                               for c in (wx, wy, wz)]) / nq
         q = torch.stack([wx - anchor[0], wy - anchor[1], wz - anchor[2]])
-        fetch = (voxel_map.gather_candidate_planes_packed if map_cfg.packed_nn
-                 else voxel_map.gather_candidate_planes)
-        cand = fetch(m, torch.stack([wx, wy, wz], dim=-1), mask, map_cfg, anchor)
-        row = icp_gn.fused_gn_carry(q, qmask, cand.contiguous(), scal,
-                                    torch.cat([pose, anchor.to(F64)]), n_inner)
+        with annotate("icp.fetch"):
+            fetch = (voxel_map.gather_candidate_planes_packed if map_cfg.packed_nn
+                     else voxel_map.gather_candidate_planes)
+            cand = fetch(m, torch.stack([wx, wy, wz], dim=-1), mask, map_cfg,
+                         anchor).contiguous()
+        with annotate("icp.gn"):
+            row = icp_gn.fused_gn_carry(q, qmask, cand, scal,
+                                        torch.cat([pose, anchor.to(F64)]), n_inner)
         pose = row[:12]
         it, flags = row[14:16].tolist()  # the one host sync per round
         iters += int(it)
@@ -269,10 +273,11 @@ def _transform_soa(T, px, py, pz):
 
 def _fetch(m, T, px, py, pz, mask, map_cfg: MapConfig):
     """Candidates of the source at pose T from the f32 slab, de-interleaved."""
-    wx, wy, wz = _transform_soa(T, px, py, pz)
-    world_f = torch.stack([wx.to(F32), wy.to(F32), wz.to(F32)], dim=-1)
-    cand, cand_valid = voxel_map.gather_candidates(m, world_f, mask, map_cfg)
-    return (*voxel_map.deinterleave_candidates(cand), cand_valid)
+    with annotate("icp.fetch"):
+        wx, wy, wz = _transform_soa(T, px, py, pz)
+        world_f = torch.stack([wx.to(F32), wy.to(F32), wz.to(F32)], dim=-1)
+        cand, cand_valid = voxel_map.gather_candidates(m, world_f, mask, map_cfg)
+        return (*voxel_map.deinterleave_candidates(cand), cand_valid)
 
 
 def _gn_iteration(T_icp, init_guess, px, py, pz, cand, mask, max_d2, kth,
@@ -425,12 +430,14 @@ def _fused_round(m, px, py, pz, mask, qmask, T, map_cfg: MapConfig, scal, n_inne
     anchor = anchor.to(F32).to(F64)
     q = torch.stack([(c - anchor[..., i, None]).to(F32)
                      for i, c in enumerate((wx, wy, wz))], dim=-2)
-    world_f = torch.stack([wx.to(F32), wy.to(F32), wz.to(F32)], dim=-1)
-    fetch = (voxel_map.gather_candidate_planes_packed if map_cfg.packed_nn
-             else voxel_map.gather_candidate_planes)
-    cand = fetch(m, world_f, mask, map_cfg, anchor)
-    gn = icp_gn.fused_gn if q.dim() == 2 else icp_gn.fused_gn_batched
-    row = gn(q, qmask, cand.contiguous(), scal, n_inner)
+    with annotate("icp.fetch"):
+        world_f = torch.stack([wx.to(F32), wy.to(F32), wz.to(F32)], dim=-1)
+        fetch = (voxel_map.gather_candidate_planes_packed if map_cfg.packed_nn
+                 else voxel_map.gather_candidate_planes)
+        cand = fetch(m, world_f, mask, map_cfg, anchor).contiguous()
+    with annotate("icp.gn"):
+        gn = icp_gn.fused_gn if q.dim() == 2 else icp_gn.fused_gn_batched
+        row = gn(q, qmask, cand, scal, n_inner)
     Rd = row[..., :9].reshape(row.shape[:-1] + (3, 3))
     td = row[..., 9:12] + anchor - torch.sum(Rd * anchor[..., None, :], dim=-1)
     flags = row[..., 15]
@@ -498,6 +505,7 @@ def icp_registration_fused_unrolled(
     return IcpResult(pose, iters, n_corr, rms, converged & ~empty)
 
 
+@annotate("icp.register")
 def registration_dispatch(m, source, source_mask, init_guess, sigma,
                           map_cfg: MapConfig, icp_cfg: IcpConfig) -> IcpResult:
     """The registration variant the config selects (JAX ops/icp.py:744):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import LidarConfig
+from ..utils.profiling import annotate
 
 _I64_MAX = 0x7FFFFFFFFFFFFFFF
 
@@ -90,6 +91,7 @@ def rotation_model_rel_time(xyz, ring, mask, cfg: LidarConfig) -> torch.Tensor:
     return (diff / scan_ang_vel / 1000.0).to(torch.float64)
 
 
+@annotate("preprocess.scan")
 def preprocess_scan(raw: RawScan, cfg: LidarConfig) -> Scan:
     """Range gate, relative time, optional sort. Returns a full-scan `Scan`."""
     xyz = raw.xyz

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
+from ..utils.profiling import annotate
 from . import lie
 
 EMPTY = -1
@@ -402,6 +403,7 @@ def first_point_per_voxel(points, mask, voxel_size: float, out_capacity: int):
     return out, out_mask, n_unique, window_drops
 
 
+@annotate("voxel_map.downsample")
 def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
                      tau=None) -> GroupedCloud:
     """First-point-per-(voxel/2) downsample grouped by the full voxel, from
@@ -739,6 +741,7 @@ def _insert_grouped_compact(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys,
                     (m.drops + dropped).to(I32), new_grid, new_next, new_packed)
 
 
+@annotate("voxel_map.insert")
 def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig, keys=None,
                    inplace: bool = False) -> VoxelMap:
     """Insert a pre-grouped compacted cloud (`fused_downsample` output).
@@ -817,6 +820,7 @@ def insert(m: VoxelMap, points, mask, cfg: MapConfig) -> VoxelMap:
 # ---------------------------------------------------------------------------
 
 
+@annotate("voxel_map.evict")
 def evict_far(m: VoxelMap, origin, cfg: MapConfig, exact_boundary: bool = False,
               inplace: bool = False) -> VoxelMap:
     """Tombstone voxels whose voxel-index distance (scaled to metres) from

@@ -1,9 +1,8 @@
 """The port's profiling helpers (`lidar_imu_slam_tpu_torch/utils/
 profiling.py`) and native scan packer (`host/native.py`), on the CPU:
 
-* `StageTimer` accumulates and reports as JAX's; `block_and_time` times a
-  call; `device_trace` writes a Chrome trace that names an `annotate`
-  range;
+* `device_trace` writes a Chrome trace that names an `annotate` range
+  (tests/test_torch_spans.py holds the spans on the step's path);
 * the native packer, built into the port's build directory, is bit-equal
   to the JAX package's `host/native` on tests/test_native.py's cases and
   matches the port's `preprocess_scan` there (masks equal, xyz 1e-6,
@@ -15,7 +14,6 @@ profiling.py`) and native scan packer (`host/native.py`), on the CPU:
 
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -23,7 +21,6 @@ import torch
 
 from lidar_imu_slam_tpu.config import LidarConfig as JLidarConfig
 from lidar_imu_slam_tpu.host import native as jnative
-from lidar_imu_slam_tpu.utils.profiling import StageTimer as JStageTimer
 from lidar_imu_slam_tpu_torch.config import LidarConfig
 from lidar_imu_slam_tpu_torch.host import native
 from lidar_imu_slam_tpu_torch.ops import preprocess
@@ -33,31 +30,6 @@ torch.set_num_threads(1)
 
 KW = dict(max_range=50.0, min_range=1.0, max_points=256, frame_rate=10.0)
 CFG = LidarConfig(**KW)
-
-
-def test_stage_timer_reports_like_jax(monkeypatch):
-    clock = iter(np.arange(0.0, 100.0, 0.25))
-    monkeypatch.setattr(time, "perf_counter", lambda: float(next(clock)))
-    timers = (profiling.StageTimer(), JStageTimer())
-    for t in timers:
-        for name in ("pack", "step", "step", "pack", "step"):
-            with t.stage(name):
-                pass
-    assert timers[0].counts == {"pack": 2, "step": 3}
-    assert timers[0].totals == {"pack": 0.5, "step": 0.75}
-    assert timers[0].report() == timers[1].report()
-    assert timers[0].report().splitlines()[0].startswith("step")
-
-
-def test_block_and_time_calls_and_times():
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return (x * 2, [x + 1])
-
-    s = profiling.block_and_time(fn, torch.ones(4), repeats=3)
-    assert len(calls) == 4 and s >= 0.0
 
 
 def test_device_trace_names_annotated_ranges(tmp_path):
