@@ -29,6 +29,15 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    versions per stream and timed beside them; each launch's cluster shape,
    a repeated launch bit-equal, K5 timed at cluster sizes 4, 8 and 16 (8
    streams) and 1, 2 and 4 (256 streams);
+4b. the ICP candidate fetch kernel (`csrc/candidate_fetch.cu`): its planes
+   bit-equal to the plain version's (+inf included) and a repeated launch
+   bit-equal on every case of tools/fetch_cases.py (batched at 8192 and
+   16,384 queries a stream, one stream, NB 27, Kp 4 and 5, a third masked,
+   an empty map, an f32 anchor, wrapped keys 300 m out), then at the
+   benchmark cells' shapes (128 x 8192, 64 x 16,384; each stream's map
+   about the cell's live voxels; and 128 x 8192 at NB 27) bit-equal and
+   timed (kernel per call and device, the path's fetch with its anchor
+   terms, the plain version) beside its bound by bytes;
 5. K6 `nn_bruteforce` at the classic path's shape (4096 queries x a
    1,310,720-entry pool, ~30% +inf, 256 exact ties) and on every
    adversarial case of tools/nn_cases.py at that shape: indices and d^2
@@ -906,6 +915,10 @@ def slice_phase(dev, cfg, raws, gt):
     _require(launches["gn_spread"] == 0, "slice: K1 at 4096 x 80 left the one-cluster kernel")
     _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
              "slice: pose kernels did not run once per scan")
+    # (a package without the fetch kernel, as `--measure` may drive, counts none)
+    _require(launches.get("candidate_fetch", launches["fused_gn_carry"])
+             == launches["fused_gn_carry"],
+             "slice: the ICP rounds' fetches did not all launch the fetch kernel")
     _require(ate <= ATE_LIMIT_M, f"slice: ATE {ate:.4f} m above {ATE_LIMIT_M}")
     return launches, stats
 
@@ -1352,6 +1365,105 @@ def nn_kernel_phase(dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=library_ms, device_ms=t["device_ms"], host_ms=t["host_ms"],
                 slice_sweep_ms=sweep, case_ms=case_ms)
+
+
+def _fetch_distinct(m, q, qm, cfg) -> tuple[int, int]:
+    """The distinct grid cells and packed rows a batched fetch reads: what
+    its inputs need, each read once."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+
+    s = q.shape[0]
+    keys = voxel_map.pack_key(voxel_map._neighbor_voxels(q, cfg)).reshape(s, -1)
+    on = qm.repeat(1, cfg.neighborhood)
+    offs = torch.arange(s, device=q.device)[:, None]
+    pos = voxel_map.grid_pos(keys, cfg).to(torch.int64) + offs * m.grid.shape[-1]
+    slots = voxel_map._lookup(m, keys, on, cfg).to(torch.int64)
+    rows = (slots + offs * m.packed.shape[-2])[slots >= 0]
+    return int(torch.unique(pos[on]).numel()), int(torch.unique(rows).numel())
+
+
+def fetch_kernel_phase(dev) -> dict:
+    """The ICP candidate fetch kernel against its plain version: bit-equal
+    (+inf included) on every case of tools/fetch_cases.py and a repeated
+    launch bit-equal; then at the benchmark cells' shapes (128 x 8192 and
+    64 x 16,384 queries, NB 8, Kp 10, maps of about the cells' live voxels;
+    128 x 8192 at NB 27 too) bit-equal again and timed: the kernel
+    alone (CUDA events; device: queued behind a stream sleep), the whole
+    fetch as the path calls it (with its anchor terms), and the plain
+    version, beside the bound (every byte it needs once: the planes written,
+    the distinct grid cells and packed rows read, the queries and mask) and
+    the count of one cell and one row a (query, neighbour)."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.ops import voxel_map
+    from lidar_imu_slam_tpu_torch.ops.kernels import candidate_fetch as cf
+    from lidar_imu_slam_tpu_torch.tools import fetch_cases
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    print("fetch candidate_fetch_kernel, ptxas: " +
+          "; ".join(_ptxas_lines("candidate_fetch_kernel")))
+    for case in fetch_cases.CASES:
+        m, q, qm, cfg, anchor = fetch_cases.case(case, dev)
+        out = _same_twice(f"fetch {case}", lambda: voxel_map.gather_candidate_planes_packed(
+            m, q, qm, cfg, anchor), quiet=True)
+        ref = voxel_map.gather_candidate_planes_packed_plain(m, q, qm, cfg, anchor)
+        _require(torch.equal(bits(out), bits(ref)),
+                 f"fetch {case}: the kernel's planes differ from the plain version's")
+        del m, q, qm, out, ref
+    print(f"fetch: bit-equal to the plain version, twice, on {len(fetch_cases.CASES)} cases "
+          f"({', '.join(fetch_cases.CASES)})")
+    shapes = {}
+    for name in fetch_cases.DEPLOYMENTS:
+        m, q, qm, cfg, anchor = fetch_cases.deployment(name, dev)
+        av, aoff = voxel_map._anchor_terms(anchor, cfg.voxel_size)
+        geo = voxel_map.fetch_geometry(cfg)
+
+        def kernel():
+            return cf.candidate_fetch(m.grid, m.packed, q, qm, av, aoff, **geo)
+
+        def path():
+            return voxel_map.gather_candidate_planes_packed(m, q, qm, cfg, anchor)
+
+        def plain():
+            return voxel_map.gather_candidate_planes_packed_plain(m, q, qm, cfg, anchor)
+
+        out = path()
+        ref = plain()
+        _require(torch.equal(bits(out), bits(ref)),
+                 f"fetch {name}: the kernel's planes differ from the plain version's")
+        found = float(torch.isfinite(out).all(dim=-3).float().mean())
+        del ref
+        s, n = q.shape[0], q.shape[1]
+        nb, kp = cfg.neighborhood, cfg.packed_width
+        cells, rows = _fetch_distinct(m, q, qm, cfg)
+        lookup_ms = _bound_ms(_nbytes(out, q, qm) + s * nb * n * 4 * (1 + kp), 0.0)[0]
+        bound, by = _bound_ms(_nbytes(out, q, qm) + 4 * cells + 4 * kp * rows, 0.0)
+        t = dict(ms=_cuda_ms(kernel, 20), device_ms=_device_ms(kernel, 20),
+                 path_device_ms=_device_ms(path, 20), plain_ms=_cuda_ms(plain, 3),
+                 bound_ms=bound, bound_by=by, lookup_bound_ms=lookup_ms, found_share=found,
+                 distinct_cells=cells, distinct_rows=rows)
+        t["roofline_pct"] = 100.0 * bound / t["device_ms"]
+        print(f"fetch {name} ({s} x {n}, NB {nb}, Kp {kp}): kernel {t['ms']:.4f} ms/launch "
+              f"(device {t['device_ms']:.4f}; {t['roofline_pct']:.1f}% of the bound), the "
+              f"path's fetch device {t['path_device_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms/call; bound {bound:.4f} ms ({by}: {cells} distinct grid cells, {rows} "
+              f"distinct rows), {lookup_ms:.4f} ms with a cell and a row a lookup; "
+              f"{found:.3f} of the candidates found")
+        shapes[name] = t
+        del m, q, qm, out
+    torch.cuda.empty_cache()
+    hdl = shapes["hdl64"]
+    return dict(name="candidate_fetch", route="cuda",
+                source="lidar_imu_slam_tpu_torch/csrc/candidate_fetch.cu",
+                replaces="none (the JAX fetch is plain jnp gathers: "
+                         f"{REFERENCE_PKG}/ops/voxel_map.py:gather_candidate_planes_packed)",
+                max_abs_err=0.0, library_ms=None,
+                **{k: hdl[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                shapes=shapes)
 
 
 def _small_cfg(cfgmod, gn_backend):
@@ -3312,7 +3424,8 @@ def main(argv=None) -> int:
     cfg64 = bench_cfg(cfgmod, POINTS_PER_SCAN, gn_backend="xla")
     kernels = kernel_phase(dev, cfg)
     pose_chain_cases_phase(dev)
-    kernels += batched_kernel_phase(dev, cfg, cfgmod) + [nn_kernel_phase(dev)]
+    kernels += batched_kernel_phase(dev, cfg, cfgmod) + [fetch_kernel_phase(dev),
+                                                         nn_kernel_phase(dev)]
     probe_kernels, probe_launches = probe_phase(dev)
     kernels += probe_kernels
     small_drive_phase(dev)

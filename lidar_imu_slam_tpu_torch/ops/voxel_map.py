@@ -24,7 +24,9 @@ Two rules that the JAX code relies on implicitly are explicit here:
   explicitly.
 
 Candidates come from the packed slab for the fused GN kernels
-(`gather_candidate_planes_packed`) and from the f32 slab for the classic
+(`gather_candidate_planes_packed`: on the card one kernel,
+`kernels/candidate_fetch`, bit-equal to its plain version here) and from
+the f32 slab for the classic
 f64 path (`gather_candidates`, `nearest_neighbors`), which also needs the
 slab for `evict_far(exact_boundary=True)`.
 
@@ -58,6 +60,8 @@ import torch
 from ..config import MapConfig
 from ..utils.profiling import annotate
 from . import lie
+from .kernels import candidate_fetch
+from .kernels._common import on_cpu
 
 EMPTY = -1
 DELETED = -2
@@ -611,16 +615,18 @@ def gather_candidate_planes(m: VoxelMap, queries, qmask, cfg: MapConfig,
     return planes - anchor.to(torch.float32)[..., :, None, None]
 
 
-def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
-                                   anchor) -> torch.Tensor:
-    """Candidate fetch for the GN kernel from the packed i32 slab.
+def _anchor_terms(anchor, voxel_size: float):
+    """The anchor's voxel av = round(anchor / vs) (..., 3) i32 and its
+    offset aoff = av * vs - anchor (..., 3), in f64, rounded to f32."""
+    a64 = anchor.to(torch.float64)
+    av = torch.round(_tdiv(a64, voxel_size)).to(I32)
+    return av, (av.to(torch.float64) * voxel_size - a64).to(torch.float32)
 
-    queries (..., N, 3) f32 world frame; anchor (..., 3) centering offset
-    (any dtype; used in f64). Returns (..., 3, NC, N) f32 candidate
-    coordinates centred on `anchor`, NC = Kp * NB, candidate j = kp * NB +
-    nb — the JAX package's (3, NC, N/128, 128) planes without the lane
-    split. +inf marks absent voxels and unused lanes (they lose the
-    kernel's running min)."""
+
+def gather_candidate_planes_packed_plain(m: VoxelMap, queries, qmask, cfg: MapConfig,
+                                         anchor) -> torch.Tensor:
+    """Plain PyTorch version of `gather_candidate_planes_packed` (any
+    device; the CPU path, and the card's tests' yardstick)."""
     kn = cfg.packed_width
     n = queries.shape[-2]
     lead = queries.shape[:-2]
@@ -633,9 +639,8 @@ def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
     pk = _take(m.packed, safe).transpose(-1, -2)  # (..., Kp, NB*N)
     pk = torch.where(present[..., None, :], pk, torch.full_like(pk, _PK_SENT32))
     vs = cfg.voxel_size
-    a64 = anchor.to(torch.float64)
-    av = torch.round(_tdiv(a64, vs)).to(I32)
-    aoff = (av.to(torch.float64) * vs - a64).to(torch.float32)[..., None, None]
+    av, aoff = _anchor_terms(anchor, vs)
+    aoff = aoff[..., None, None]
     kv_rel = (nbr - av[..., None, None, :]).reshape(lead + (nb * n, 3))
     bad = pk < 0
     inf = torch.full(pk.shape, float("inf"), dtype=torch.float32, device=pk.device)
@@ -645,6 +650,37 @@ def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
         for axis, shift in ((0, 2 * _PKL_BITS), (1, _PKL_BITS), (2, 0))
     ], dim=-3)  # (..., 3, Kp, NB*N)
     return planes.reshape(lead + (3, kn * nb, n))
+
+
+def gather_candidate_planes_packed(m: VoxelMap, queries, qmask, cfg: MapConfig,
+                                   anchor) -> torch.Tensor:
+    """Candidate fetch for the GN kernel from the packed i32 slab.
+
+    queries (..., N, 3) world frame (used in f32); qmask (..., N) bool;
+    anchor (..., 3) centering offset (any dtype; used in f64). Returns
+    (..., 3, NC, N) f32 candidate coordinates centred on `anchor`, NC = Kp *
+    NB, candidate j = kp * NB + nb — the JAX package's (3, NC, N/128, 128)
+    planes without the lane split. +inf marks absent voxels and unused
+    lanes (they lose the kernel's running min). CPU tensors: the plain
+    version; CUDA tensors: the fetch kernel (`kernels/candidate_fetch`),
+    bit-equal to it, with the anchor's two terms computed here."""
+    if on_cpu(queries, qmask, anchor, m.grid, m.packed):
+        return gather_candidate_planes_packed_plain(m, queries, qmask, cfg, anchor)
+    av, aoff = _anchor_terms(anchor, cfg.voxel_size)
+    return candidate_fetch.candidate_fetch(
+        m.grid, m.packed, queries.to(torch.float32).contiguous(), qmask.contiguous(), av, aoff,
+        **fetch_geometry(cfg))
+
+
+def fetch_geometry(cfg: MapConfig) -> dict:
+    """The fetch kernel's map geometry: the neighbourhood, the grid's log2
+    dimensions, the slot bits and the decode's f32 constants (voxel size,
+    half a voxel, a packed lane's scale, half the packed window)."""
+    vs = cfg.voxel_size
+    decode = (_f32(vs), _f32(0.5 * vs), _f32(_PKL_SPAN * vs / _PKL_MAX),
+              _f32(0.5 * _PKL_SPAN * vs))
+    return dict(neighborhood=cfg.neighborhood, grid_log2=_grid_log2(cfg),
+                slot_bits=_slot_bits(cfg), decode=decode)
 
 
 # ---------------------------------------------------------------------------

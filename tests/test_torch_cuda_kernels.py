@@ -24,7 +24,13 @@ single-stream or batched, fast or classic; the probe gathers `take_rows`
 and `take_lanes` bit-equal in every launch variant; `gn_proto` R and t within 1e-5 (the kernel and
 the plain version differ only by the order of the f32 block sums) and
 `conv` equal, at every cluster size, and a repeated launch bit-equal; a short LIO drive, card against CPU, 1e-4 on both branches.
+The ICP candidate fetch kernel writes the plain version's planes bit for
+bit (+inf positions included) on every case of tools/fetch_cases.py, and
+a 16-step batched drive of each batched preset gives bit-equal poses and
+maps with the kernel and with the plain fetch on the card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -39,7 +45,7 @@ from lidar_imu_slam_tpu_torch.ops.kernels import (_common, icp_gn, nn_bruteforce
 from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
                                                      stack_raw_scans)
 from lidar_imu_slam_tpu_torch.parallel import streams
-from lidar_imu_slam_tpu_torch.tools import nn_cases
+from lidar_imu_slam_tpu_torch.tools import fetch_cases, nn_cases
 from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pose_cases
 from lidar_imu_slam_tpu_torch.tools import probes as probe_tool
 
@@ -599,3 +605,73 @@ def test_lio_drive_card_matches_cpu(dev, backend):
         torch.testing.assert_close(poses[0], poses[1], rtol=0, atol=1e-4)
     assert bool(out.used_imu)
     assert _common.LAUNCHES["pose_pre"] == (n if backend == "pallas" else 0)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("case", fetch_cases.CASES)
+def test_candidate_fetch_kernel_bit_equal_to_plain(dev, case):
+    m, q, qm, cfg, anchor = fetch_cases.case(case, dev)
+    before = _common.LAUNCHES["candidate_fetch"]
+    out = voxel_map.gather_candidate_planes_packed(m, q, qm, cfg, anchor)
+    assert _common.LAUNCHES["candidate_fetch"] == before + 1
+    again = voxel_map.gather_candidate_planes_packed(m, q, qm, cfg, anchor)
+    assert _common.LAUNCHES["candidate_fetch"] == before + 2
+    ref = voxel_map.gather_candidate_planes_packed_plain(m, q, qm, cfg, anchor)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32 and out.is_contiguous()
+    assert torch.equal(_bits(out), _bits(ref)) and torch.equal(_bits(again), _bits(out))
+
+
+# odom_bench/tests/cells.py's small cells: each batched preset cut to 4096
+# points, a 16,384-slot map and 512 source points, under the 2 x 4 unroll
+DRIVE_SMALL = {"lidar": {"max_points": 4096}, "map": {"capacity": 16384},
+               "icp": {"max_map_points": 2048, "max_source_points": 512}}
+
+
+@pytest.mark.parametrize("preset", ["kitti_64beam", "livox_dense"])
+def test_batched_drive_bit_equal_with_plain_fetch(dev, preset, monkeypatch):
+    cfg = getattr(cfgmod, preset)()
+    for group, fields in DRIVE_SMALL.items():
+        cfg = cfg.replace(**{group: dataclasses.replace(getattr(cfg, group), **fields)})
+    cfg = streams.batch_config(cfg, 2, 4)
+    lc = cfg.lidar
+    n_streams, n_steps = 4, 16
+    world = synthetic.make_world(seed=1, n_points=40000, extent=(40.0, 16.0, 6.0))
+    gt = synthetic.make_trajectory(n_poses=n_steps + n_streams, speed=2.0, yaw_rate=0.03,
+                                   dt=0.1)
+    raws = []
+    for i in range(n_steps + n_streams - 1):
+        if preset == "kitti_64beam":  # rolling shutter, per-point time
+            pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 3500,
+                                                     lc.min_range, lc.max_range, noise=0.01,
+                                                     seed=i)
+            raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1,
+                                      max_points=lc.max_points, device=dev))
+        else:
+            pts = synthetic.render_scan(world, gt[i], 3500, lc.min_range, lc.max_range,
+                                        noise=0.01, seed=i)
+            raws.append(pack_raw_scan(pts, stamp=i * 0.1, max_points=lc.max_points, device=dev))
+
+    def drive():
+        states = streams.init_batched_state(cfg, n_streams, dev)
+        poses = []
+        for i in range(n_steps):
+            scans = preprocess_scan(stack_raw_scans(raws[i:i + n_streams]), lc)
+            states, out = streams.batched_register_frame_step(states, scans, cfg)
+            poses.append(out.pose)
+        return torch.stack(poses), states.map
+
+    before = _common.LAUNCHES["candidate_fetch"]
+    poses, m = drive()
+    fetches = n_steps * cfg.icp.batch_unroll_outer
+    assert _common.LAUNCHES["candidate_fetch"] == before + fetches
+    monkeypatch.setattr(voxel_map, "gather_candidate_planes_packed",
+                        voxel_map.gather_candidate_planes_packed_plain)
+    poses_plain, m_plain = drive()
+    assert _common.LAUNCHES["candidate_fetch"] == before + fetches
+    assert bool(torch.isfinite(poses).all())
+    assert torch.equal(poses, poses_plain)
+    assert all(torch.equal(a, b) for a, b in zip(m, m_plain))

@@ -4,8 +4,9 @@ loads its kernel or raises — it never runs the plain version; the lean
 wrappers (the gathers, K2 / K3) check dtype, shape, contiguity and devices
 before they load the library and launch only on one CUDA device; the
 build raises with nvcc's stderr. A whole batched step on non-CPU tensors
-runs up to kernel K5 and raises there (and, on `meta` tensors, shows that
-nothing before it reads the device from the host)."""
+runs up to its first kernel, the ICP candidate fetch, and raises there
+(and, on `meta` tensors, shows that nothing before it reads the device
+from the host)."""
 
 import ctypes
 import os
@@ -18,8 +19,9 @@ import pytest
 import torch
 
 from lidar_imu_slam_tpu_torch import config as cfgmod
-from lidar_imu_slam_tpu_torch.ops.kernels import (_build, _common, icp_gn, nn_bruteforce, pose_chain,
-                                                  probes)
+from lidar_imu_slam_tpu_torch.ops import voxel_map
+from lidar_imu_slam_tpu_torch.ops.kernels import (_build, _common, candidate_fetch, icp_gn,
+                                                  nn_bruteforce, pose_chain, probes)
 from lidar_imu_slam_tpu_torch.ops.preprocess import Scan
 from lidar_imu_slam_tpu_torch.parallel import streams
 
@@ -62,10 +64,12 @@ def no_library(monkeypatch):
     monkeypatch.setattr(icp_gn, "_fn", None)
     monkeypatch.setattr(nn_bruteforce, "_fns", {})
     monkeypatch.setattr(probes, "_fns", {})
+    monkeypatch.setattr(candidate_fetch, "_fns", {})
 
     def forbidden(*a, **k):
         raise AssertionError("plain version called for non-CPU tensors")
 
+    monkeypatch.setattr(voxel_map, "gather_candidate_planes_packed_plain", forbidden)
     monkeypatch.setattr(pose_chain, "pose_pre_ref", forbidden)
     monkeypatch.setattr(pose_chain, "pose_post_ref", forbidden)
     monkeypatch.setattr(icp_gn, "fused_gn_carry_ref", forbidden)
