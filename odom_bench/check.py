@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from .reference.odometry import DenseMap
+from .reference.odometry import DenseMap, unpack_code
 
 MATCH_TOL_M = 1e-3
 _KEY_BITS, _KEY_MASK = 10, 1023
@@ -55,13 +55,9 @@ def sigma_gap(port: torch.Tensor, ref: torch.Tensor) -> float:
     return float((torch.abs(port - ref) / torch.abs(ref)).max())
 
 
-def port_map_dense(keys, points, npts, pose_t, vs: float, like: DenseMap):
-    """The port's map tables of B streams (keys (B, C) wrapped 10-bit
-    voxel keys, points (B, C, K*3), npts (B, C)) laid out on the
-    reference's grid: (points (B, G + 1, K, 3), counts (B, G + 1)). Keys
-    unwrap around the voxel of pose_t (B, 3), the stream's last position."""
-    b, c = keys.shape
-    k = like.k
+def key_voxels(keys, pose_t, vs: float):
+    """int64 voxels (B, C, 3) of wrapped 10-bit voxel keys (B, C), unwrapped
+    around the voxel of pose_t (B, 3), the stream's last position."""
     dev = keys.device
     ov = torch.div(pose_t.to(torch.float32), torch.full((), vs, device=dev),
                    ).to(torch.int32).to(torch.int64)
@@ -71,7 +67,18 @@ def port_map_dense(keys, points, npts, pose_t, vs: float, like: DenseMap):
         field = (kk >> shift) & _KEY_MASK
         d = (field - (ov[:, axis, None] & _KEY_MASK)) & _KEY_MASK
         axes.append(ov[:, axis, None] + torch.where(d >= 512, d - 1024, d))
-    vox = torch.stack(axes, -1)
+    return torch.stack(axes, -1)
+
+
+def port_map_dense(keys, points, npts, pose_t, vs: float, like: DenseMap):
+    """The port's map tables of B streams (keys (B, C) wrapped 10-bit
+    voxel keys, points (B, C, K*3), npts (B, C)) laid out on the
+    reference's grid: (points (B, G + 1, K, 3), counts (B, G + 1)). Keys
+    unwrap around the voxel of pose_t (B, 3), the stream's last position."""
+    b, c = keys.shape
+    k = like.k
+    dev = keys.device
+    vox = key_voxels(keys, pose_t, vs)
     live = (keys >= 0) & (npts > 0)
     cell, inside = like.index(vox)
     cell = torch.where(live & inside, cell, torch.full_like(cell, like.cells))
@@ -85,6 +92,17 @@ def port_map_dense(keys, points, npts, pose_t, vs: float, like: DenseMap):
     cnt[:, like.cells] = 0
     lost = torch.sum(live & ~inside).item()
     return pts, cnt, int(lost)
+
+
+def packed_points(keys, packed, pose_t, vs: float):
+    """The points (B, C, Kp * 3) f32 of the port's packed mirror (B, C, Kp)
+    of 10-bit codes an axis, decoded in each slot's voxel as `unpack_code`
+    decodes the reference's (lanes past a voxel's count read as garbage;
+    the count masks them)."""
+    vox = key_voxels(keys, pose_t, vs)[:, :, None, :]
+    p = packed.to(torch.int64)[..., None]
+    code = torch.cat([(p >> 20) & _KEY_MASK, (p >> 10) & _KEY_MASK, p & _KEY_MASK], -1)
+    return unpack_code(code, vox, vs).reshape(packed.shape[0], packed.shape[1], -1)
 
 
 def map_mismatch(ref: DenseMap, port_pts, port_cnt, chunk: int = 1 << 17):
@@ -109,6 +127,29 @@ def map_mismatch(ref: DenseMap, port_pts, port_cnt, chunk: int = 1 << 17):
         off.index_add_(0, bb, miss.to(torch.int64))
         tot.index_add_(0, bb, (rv.sum(1) + pv.sum(1)).to(torch.int64))
     return off.cpu().numpy(), tot.cpu().numpy()
+
+
+def compare(poses, own, sigmas, ref_sig, cols, ref_map: DenseMap, port_pts, port_cnt,
+            lost: int, like: DenseMap | None = None) -> tuple[dict, dict]:
+    """(numbers, detail) of the compared streams `cols`: the port's poses
+    (steps, S, 4, 4) and sigmas (steps, S), the reference's own (steps, B,
+    4, 4) and ref_sig (steps, B), and the port's maps laid out on the grid
+    of `like` (default ref_map) by `port_map_dense`, with `lost` points
+    off it."""
+    like = ref_map if like is None else like
+    gap_m, gap_rad = pose_gaps(poses[:, cols], own)
+    off, tot = map_mismatch(like, port_pts, port_cnt)
+    numbers = {
+        "pose_gap_m": gap_m,
+        "pose_gap_rad": gap_rad,
+        "sigma_gap_rel": sigma_gap(sigmas[:, cols], ref_sig),
+        "map_off_share": float(off.sum() / max(tot.sum(), 1)),
+        "ref_out_of_box": float(ref_map.out_of_box.sum().item() + lost),
+        "scans_compared": float(own.shape[0] * own.shape[1]),
+    }
+    detail = {"streams": cols.tolist(), "map_off_per_stream": off.tolist(),
+              "map_points_per_stream": tot.tolist()}
+    return numbers, detail
 
 
 def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+TRACK_GATE_M = 0.5  # chip_smoke.py:monte_carlo_phase's tracking gate
+
 
 def ate(poses: np.ndarray, gt: np.ndarray, shift: float) -> float:
     """Translation RMS ATE of poses (n, 4, 4) against gt (>= n + 1, 4, 4)
@@ -28,3 +30,18 @@ def ate(poses: np.ndarray, gt: np.ndarray, shift: float) -> float:
     rot = vt.T @ np.diag([1.0, 1.0, d]) @ u.T
     err = (est - mu_e) @ rot.T + mu_t - target
     return float(np.sqrt(np.mean(np.sum(err**2, axis=-1))))
+
+
+def failed_scans(poses: np.ndarray, gt_of, shift: float) -> tuple[int, list]:
+    """Scans with a non-finite pose, plus every scan of a stream whose ATE
+    against its ground truth `gt_of(s)` passes the tracking gate. poses
+    (steps, S, 4, 4). Returns (failed, per-stream ATE)."""
+    steps = poses.shape[0]
+    failed, ates = 0, []
+    for s in range(poses.shape[1]):
+        p = poses[:, s]
+        finite = np.isfinite(p).all(axis=(-1, -2))
+        a = ate(p, gt_of(s), shift) if finite.all() else float("inf")
+        ates.append(a)
+        failed += steps if not a <= TRACK_GATE_M else int((~finite).sum())
+    return failed, ates

@@ -15,6 +15,7 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIXES = "mixes"
 METRICS = "metrics"
+DRIVERS = "drivers"
 
 
 class Cell(NamedTuple):
@@ -61,3 +62,7 @@ def resolve(root: str, workload: str, bench_dir: str = BENCH_DIR) -> Cell:
 
 def metric_file(name: str, bench_dir: str = BENCH_DIR) -> str:
     return os.path.join(bench_dir, METRICS, f"{name}.py")
+
+
+def driver_file(name: str, bench_dir: str = BENCH_DIR) -> str:
+    return os.path.join(bench_dir, DRIVERS, f"{name}.py")

@@ -9,50 +9,56 @@ import types
 
 import torch
 
-from .reference.odometry import RefOdometry
+from .reference.odometry import pack_code
 
 _KEY_MASK = 1023
 
 
-def _port_tables(dense, k: int):
-    """A reference map as the port's tables: (keys (B, G) wrapped 10-bit
-    voxel keys or -1, points (B, G, K * 3), npts (B, G))."""
+def _port_tables(dense, fields, mapc):
+    """A reference map as the port's tables named in `fields`: keys (B, G)
+    wrapped 10-bit voxel keys or -1, npts (B, G), points (B, G, K * 3) (the
+    f32 slab) or packed (B, G, Kp) (the packed mirror of each voxel's first
+    Kp points, 10 bits an axis)."""
     g = dense.cells
     vox = dense.voxels()
     key = (((vox[:, 0] & _KEY_MASK) << 20) | ((vox[:, 1] & _KEY_MASK) << 10)
            | (vox[:, 2] & _KEY_MASK)).to(torch.int32)
     cnt = dense.cnt[:, :g]
     keys = torch.where(cnt > 0, key[None], torch.full_like(cnt, -1))
-    return types.SimpleNamespace(keys=keys, points=dense.pts[:, :g].reshape(cnt.shape[0], g, k * 3),
-                                 npts=cnt)
+    out = types.SimpleNamespace(keys=keys, npts=cnt)
+    if "points" in fields:
+        out.points = dense.pts[:, :g].reshape(cnt.shape[0], g, dense.k * 3)
+    if "packed" in fields:
+        kp = mapc["nn_points"] or mapc["max_points_per_voxel"]
+        code = pack_code(dense.pts[:, :g, :kp], vox[None, :, None, :],
+                         mapc["voxel_size"]).to(torch.int32)
+        out.packed = (code[..., 0] << 20) | (code[..., 1] << 10) | code[..., 2]
+    return out
 
 
 def control(pose_dtype=torch.float32):
     """The reference in the program's place, its poses, threshold sums and
-    solve in `pose_dtype`, following its own trajectory."""
+    solve in `pose_dtype`, following its own trajectory on the inputs the
+    driver gives it."""
     box = {}
 
     def step(driver):
         if "ref" not in box:
-            cfg = driver.cell.config
-            box["ref"] = RefOdometry(cfg["pipeline"], driver.s, cfg["reference_grid"],
-                                     driver.device, pose_dtype=pose_dtype)
+            box["ref"] = driver.reference(driver.s, pose_dtype)
         ref = box["ref"]
-        raw = driver.raw(driver.k)
-        pose, sigma = ref.step(raw.xyz, raw.time, raw.ring, raw.mask, raw.stamp)
+        pose, sigma = driver.ref_step(ref, driver.k)
         driver.poses.append(pose.to(torch.float64))
         driver.sigmas.append(sigma.to(torch.float64))
-        driver.states = types.SimpleNamespace(map=_port_tables(ref.map, ref.map.k))
+        driver.states = types.SimpleNamespace(map=_port_tables(
+            ref.map, driver.MAP_FIELDS, driver.cell.config["pipeline"]["map"]))
         driver.k += 1
 
     return step
 
 
 def _functional_step(driver):
-    from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
-
-    scans = preprocess_scan(driver.raw(driver.k), driver.cfg.lidar)
-    return driver.streams.batched_register_frame(driver.states, scans, driver.cfg)
+    return driver.streams.batched_register_frame(driver.states, driver.batch(driver.k),
+                                                 driver.cfg)
 
 
 def _select(keep_new, new, old):

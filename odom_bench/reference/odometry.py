@@ -8,28 +8,30 @@ One call of `RefOdometry.step` registers one scan of each of B streams:
 
 1. preprocess: range gate on the squared range, per-point time (the scan's
    own times when any is positive, else the constant-rotation model per
-   ring), time sort (ties by sensor order), tau in [0, 1];
+   ring), time sort (ties by sensor order) where the configuration sorts,
+   tau in [0, 1];
 2. constant-velocity deskew by exp((tau - 0.5) log(T_{n-2}^-1 T_{n-1})),
    from the third scan on, in f32;
 3. the guess T_{n-1} (T_{n-2}^-1 T_{n-1}) and the adaptive threshold sigma
    (KISS-ICP: the RMS of 2 r sin(theta / 2) + |t| of past model
    deviations above min_motion_th, once the sensor has moved);
 4. the world transform at the guess; the map-insert downsample: the first
-   point (in time order) of each half-voxel cell, cells in (voxel, cell)
-   coordinate order, the first max_map_points kept; the ICP source: the
-   first of those per 1.5-voxel cell, in cell order, the first
-   max_source_points kept, then the Tukey IQR fence (1.25) on the squared
-   distance to the guess;
+   point (in time order, by 12-bit tau for unsorted scans) of each
+   half-voxel cell, cells in (voxel, cell) coordinate order, the first
+   max_map_points kept; the ICP source: the first of those per 1.5-voxel
+   cell, in cell order, the first max_source_points kept, then the Tukey
+   IQR fence (1.25) on the squared distance to the guess;
 5. the fixed ICP schedule: `outer` candidate fetches from the 2 x 2 x 2
-   voxel block around each query (the map's points quantized to 10 bits an
-   axis in the 3-voxel window of their voxel when the map keeps its packed
-   mirror), each followed by `inner` robust point-to-point Gauss-Newton
-   iterations (nearest candidate in f32, weight (k / (k + r^2))^2 with k =
-   sigma / 3, pairs within 3 sigma, f64 sums and 6 x 6 solve with a 1e-6
-   relative ridge on the rotation-scaled normal matrix, step clamped to
-   max_step_norm, stop below estimation_threshold or under
-   min_correspondences, a round abandoned once its translation drifts past
-   half a voxel); rounds apply to streams not yet converged;
+   voxel block around each query (the first `nn_points` of each voxel, all
+   where it is 0; quantized to 10 bits an axis in the 3-voxel window of
+   their voxel when the map keeps its packed mirror), each followed by
+   `inner` robust point-to-point Gauss-Newton iterations (nearest
+   candidate in f32, weight (k / (k + r^2))^2 with k = sigma / 3, pairs
+   within 3 sigma, f64 sums and 6 x 6 solve with a 1e-6 relative ridge
+   on the rotation-scaled normal matrix, step clamped to max_step_norm,
+   stop below estimation_threshold or under min_correspondences, a round
+   abandoned once its translation drifts past half a voxel); rounds apply
+   to streams not yet converged;
 6. the divergence gate (keep the guess beyond max_model_deviation) and
    re-orthonormalization;
 7. the map update by the correction: each downsampled point, moved by
@@ -51,6 +53,7 @@ f32).
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -58,6 +61,7 @@ import torch
 F32, F64 = torch.float32, torch.float64
 I64 = torch.int64
 IQR_K = 1.25
+TAU_MAX = (1 << 12) - 1
 _PK_MAX = 1023
 _PK_SPAN = 3.0
 
@@ -74,6 +78,21 @@ def _div(x: torch.Tensor, v: float) -> torch.Tensor:
 def voxel(points: torch.Tensor, size: float) -> torch.Tensor:
     """Truncation-toward-zero voxel index of f32 points, int64."""
     return _div(points.to(F32), _f32(size)).to(torch.int32).to(I64)
+
+
+def pack_code(points, vox, vs: float):
+    """The packed mirror's code of f32 points (..., 3) in their voxel vox
+    (..., 3) int64: each axis quantized to 10 bits over the 3-voxel window
+    centred on the voxel, as an f32 integer in [0, 1023]."""
+    kv = vox.to(F32) * _f32(vs)
+    inv = _f32(_PK_MAX / (_PK_SPAN * vs))
+    return torch.clamp(torch.round((points - kv + _f32(0.5 * _PK_SPAN * vs)) * inv), 0, _PK_MAX)
+
+
+def unpack_code(code, vox, vs: float):
+    """f32 points (..., 3) of packed codes (..., 3) in voxel vox (..., 3)."""
+    scale, halfspan = _f32(_PK_SPAN * vs / _PK_MAX), _f32(0.5 * _PK_SPAN * vs)
+    return vox.to(F32) * _f32(vs) + (code.to(F32) * scale - halfspan)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +235,9 @@ def _where4(cond, a, b):
 
 def preprocess(xyz, time, ring, mask, stamp, lidar: dict):
     """Range gate, relative time, time sort. Returns (xyz (B, N, 3) f32,
-    tau (B, N) f32, mask (B, N)), sorted by time."""
+    tau (B, N) f32, mask (B, N)), sorted by time where the configuration
+    sorts (`sort_by_time`), else in sensor order with the gated points
+    zeroed."""
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     d2 = x * x + y * y + z * z
     finite = torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z)
@@ -234,7 +255,10 @@ def preprocess(xyz, time, ring, mask, stamp, lidar: dict):
     t0 = torch.amin(torch.where(mask, rel, torch.full_like(rel, math.inf)), -1, keepdim=True)
     rel = rel - torch.where(torch.isfinite(t0), t0, torch.zeros_like(t0))
     if not lidar["sort_by_time"]:
-        raise ValueError("the reference follows configurations that sort by time")
+        rel_s = torch.where(mask, rel, torch.zeros_like(rel))
+        span = torch.amax(rel_s, -1, keepdim=True)
+        tau = (rel_s / torch.where(span > 0, span, torch.ones_like(span))).to(F32)
+        return torch.where(mask[..., None], xyz, torch.zeros_like(xyz)).to(F32), tau, mask
     key = torch.where(mask, torch.clamp(rel, min=0.0).to(F32),
                       torch.full_like(rel, math.inf, dtype=F32))
     key_s, order = torch.sort(key, dim=-1, stable=True)
@@ -317,16 +341,26 @@ def _compact(flags, order, capacity):
     return out[:, :capacity], kept
 
 
-def downsample(world, mask, vs: float, capacity: int):
+def downsample(world, mask, vs: float, capacity: int, tau=None):
     """Map-insert downsample: the first point of each half-voxel cell,
     cells ordered by (voxel, cell) coordinates, the first `capacity`
-    cells. Returns (points (B, M, 3), kept (B, M), voxel (B, M, 3) int64 of
+    cells. With `tau` (unsorted scans) the first of a cell is the earliest
+    by tau quantized to 12 bits, ties in row order; without it, the first
+    row. Returns (points (B, M, 3), kept (B, M), voxel (B, M, 3) int64 of
     each point's voxel, rank (B, M) of the point within its voxel)."""
     fine = voxel(world, 0.5 * vs)
     coarse = torch.div(fine, 2, rounding_mode="trunc")
     fres = fine - 2 * coarse + 1
     key = (_coord_key(coarse, 19) << 6) | (fres[..., 0] << 4) | (fres[..., 1] << 2) | fres[..., 2]
-    order, _, _, first = _first_in_cell(key, mask)
+    if tau is None:
+        order, _, _, first = _first_in_cell(key, mask)
+    else:  # rows by time first, then a stable sort by cell keeps that order within a cell
+        tmax = float(TAU_MAX)
+        by_time = torch.sort(torch.clamp(tau.to(F32) * tmax, 0.0, tmax).to(I64), dim=-1,
+                             stable=True).indices
+        inner, _, _, first = _first_in_cell(torch.gather(key, 1, by_time),
+                                            torch.gather(mask, 1, by_time))
+        order = torch.gather(by_time, 1, inner)
     rows, kept = _compact(first, order, capacity)
     pts = torch.gather(world, 1, rows[..., None].expand(rows.shape + (3,)))
     pts = torch.where(kept[..., None], pts, torch.zeros_like(pts))
@@ -417,6 +451,17 @@ class DenseMap:
     def occupied(self):
         return self.cnt[:, :self.cells] > 0
 
+    def packed(self, lanes: int, vs: float) -> "DenseMap":
+        """A copy holding each voxel's first `lanes` points as a packed
+        mirror keeps them: coded by `pack_code` and decoded."""
+        out = copy.copy(self)
+        vox = self.voxels()[None, :, None, :]
+        dec = unpack_code(pack_code(self.pts[:, :self.cells, :lanes], vox, vs), vox, vs)
+        out.pts = torch.cat([dec, self.pts[:, self.cells:, :lanes]], 1)
+        out.cnt = torch.clamp(self.cnt, max=lanes)
+        out.k = lanes
+        return out
+
     def insert(self, points, kept, vox, rank):
         """Append each kept point (rows grouped by voxel, `rank` its place in
         its group) to its voxel while the voxel holds fewer than K."""
@@ -466,9 +511,9 @@ class DenseMap:
 class RefOdometry:
     def __init__(self, pipeline: dict, b: int, grid: dict, device, pose_dtype=F64):
         self.lidar, self.mapc, self.icp = pipeline["lidar"], pipeline["map"], pipeline["icp"]
-        whole = self.mapc["nn_points"] in (0, self.mapc["max_points_per_voxel"])
-        if self.mapc["neighborhood"] != 8 or not whole:
-            raise ValueError("the reference fetches the 2 x 2 x 2 block of whole voxels")
+        if self.mapc["neighborhood"] != 8:
+            raise ValueError("the reference fetches the 2 x 2 x 2 voxel block")
+        self.lanes = self.mapc["nn_points"] or self.mapc["max_points_per_voxel"]
         if self.icp["gn_backend"] != "pallas" or self.icp["batch_unroll_outer"] <= 0:
             raise ValueError("the reference follows the batched fixed-unroll schedule")
         self.pd, self.dev, self.b = pose_dtype, device, b
@@ -495,8 +540,9 @@ class RefOdometry:
 
     # -- candidates -------------------------------------------------------
     def _candidates(self, queries, qmask):
-        """World coordinates (B, N, NC, 3) f64 of each query's candidates,
-        slot j = lane * 8 + neighbour, +inf where absent."""
+        """World coordinates (B, N, NC, 3) f64 of each query's candidates:
+        the first `nn_points` points (all, where it is 0) of each voxel of
+        the block, slot j = lane * 8 + neighbour, +inf where absent."""
         vs = self.mapc["voxel_size"]
         half = _f32(0.5 * vs)
         lo, hi = voxel(queries - half, vs), voxel(queries + half, vs)
@@ -508,21 +554,18 @@ class RefOdometry:
         flat = cell.reshape(b, -1)
         pts = torch.gather(self.map.pts.reshape(b, self.map.cells + 1, -1), 1,
                            flat[..., None].expand(flat.shape + (self.map.k * 3,)))
-        pts = pts.reshape(b, n, 8, self.map.k, 3)
+        pts = pts.reshape(b, n, 8, self.map.k, 3)[:, :, :, :self.lanes]
         cnt = torch.gather(self.map.cnt, 1, flat).reshape(b, n, 8)
-        lane = torch.arange(self.map.k, device=self.dev)
+        lane = torch.arange(self.lanes, device=self.dev)
         valid = (lane < cnt[..., None]) & (inside & qmask[..., None])[..., None]
         if self.mapc["packed_nn"]:
-            kv = nbr.to(F32)[..., None, :] * _f32(vs)  # (B, N, 8, 1, 3)
-            inv = _f32(_PK_MAX / (_PK_SPAN * vs))
-            halfspan = _f32(0.5 * _PK_SPAN * vs)
-            code = torch.clamp(torch.round((pts - kv + halfspan) * inv), 0, _PK_MAX)
+            code = pack_code(pts, nbr[..., None, :], vs)
             world = (nbr.to(F64)[..., None, :] * vs
-                     + code.to(F64) * _f32(_PK_SPAN * vs / _PK_MAX) - halfspan)
+                     + code.to(F64) * _f32(_PK_SPAN * vs / _PK_MAX) - _f32(0.5 * _PK_SPAN * vs))
         else:
             world = pts.to(F64)
         world = torch.where(valid[..., None], world, torch.full_like(world, math.inf))
-        return world.transpose(2, 3).reshape(b, n, 8 * self.map.k, 3)
+        return world.transpose(2, 3).reshape(b, n, 8 * self.lanes, 3)
 
     # -- one round of GN iterations ----------------------------------------
     def _gn_round(self, q, qmask, cand, kth, maxd2):
@@ -602,8 +645,13 @@ class RefOdometry:
         """Register one scan of each stream. `forced` (B, 4, 4): carry these
         poses into the state and the map instead of the reference's own.
         Returns (own pose (B, 4, 4), sigma (B,)), both in pose_dtype."""
+        return self.register(*preprocess(xyz, time, ring, mask, stamp, self.lidar),
+                             forced=forced)
+
+    def register(self, pts, tau, smask, forced=None):
+        """`step` from preprocessed scans: points (B, N, 3) f32, tau (B, N)
+        f32 and mask (B, N), as `preprocess` returns them."""
         pd, vs = self.pd, self.mapc["voxel_size"]
-        pts, tau, smask = preprocess(xyz, time, ring, mask, stamp, self.lidar)
         if self.icp["deskew"]:
             v, w = se3_log(inverse(self.pose_prev) @ self.pose)
             desk = deskew(pts, tau, v.to(F32), w.to(F32))
@@ -619,7 +667,9 @@ class RefOdometry:
 
         tg = guess[:, :3, 3].to(F32)
         world = rotate(guess[:, :3, :3], pts) + tg[:, None, :]
-        g_pts, g_kept, g_vox, g_rank = downsample(world, smask, vs, self.icp["max_map_points"])
+        g_pts, g_kept, g_vox, g_rank = downsample(
+            world, smask, vs, self.icp["max_map_points"],
+            tau=None if self.lidar["sort_by_time"] else tau)
         src, src_kept = source_points(g_pts, g_kept, vs, self.icp["max_source_points"])
         d_sq = torch.sum((src - tg[:, None, :]) ** 2, dim=-1)
         src_kept = iqr_fence(d_sq.to(F64), src_kept)

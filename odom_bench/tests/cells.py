@@ -1,7 +1,7 @@
 """A small cell built in a temporary directory from new files only (a
 configuration, a mix, a BENCHMARK.json naming them and the benchmark's
-metric readers), as a later change adds one: the harness runs it on the
-CPU with the port's plain kernel versions."""
+metric readers and drivers), as a later change adds one: the harness runs
+it on the CPU with the port's plain kernel versions."""
 
 from __future__ import annotations
 
@@ -14,6 +14,12 @@ from odom_bench.common import manifest
 
 SMALL = {"lidar": {"max_points": 4096}, "map": {"capacity": 16384},
          "icp": {"max_map_points": 2048, "max_source_points": 512}}
+# the Monte-Carlo VLP-16 pipeline (configs/vlp16_mc.json) with a 4096-point buffer
+SMALL_MC = {"lidar": {"num_scan_lines": 16, "max_points": 4096, "min_range": 1.0,
+                      "max_range": 40.0, "sort_by_time": False},
+            "map": {"voxel_size": 1.0, "max_range": 40.0, "capacity": 8192, "neighborhood": 8,
+                    "nn_points": 2, "grid_z": 32, "store_points": False},
+            "icp": {"max_map_points": 2048, "max_source_points": 512, "gn_backend": "pallas"}}
 
 
 def pipeline(preset: str, overrides: dict) -> dict:
@@ -26,8 +32,16 @@ def pipeline(preset: str, overrides: dict) -> dict:
     return dataclasses.asdict(streams.batch_config(cfg, 2, 4))
 
 
-def build(tmp: str, preset: str = "kitti_64beam", streams: int = 4, compare: int = 2) -> str:
-    """Write the cell `small.<preset>`'s files under tmp; returns its name."""
+def build(tmp: str, preset: str = "kitti_64beam", streams: int = 4, compare: int = 2,
+          driver: str = "fleet", ensembles: int = 2) -> str:
+    """Write the cell `small.s<streams>`'s files under tmp; returns its
+    name. With driver `ensemble` the preset is the Monte-Carlo VLP-16
+    pipeline (`preset` is not read) and the streams are `ensembles`
+    ensembles of streams // ensembles."""
+    if driver == "ensemble":
+        return _write(tmp, _ensemble_config(), {"ensembles": ensembles,
+                                                "members": streams // ensembles,
+                                                "noise_sigma": 0.01}, streams, compare)
     rolling = preset == "kitti_64beam"
     if rolling:  # a spinning sensor in make_world's street, empty returns
         world = {"kind": "box", "n_points": 20000, "extent": [20.0, 15.0, 6.0]}
@@ -52,7 +66,25 @@ def build(tmp: str, preset: str = "kitti_64beam", streams: int = 4, compare: int
                    "map_off_share": 0.01, "ref_out_of_box": 0, "scans_compared": 5},
         "pipeline": pipeline(preset, SMALL),
     }
-    mix = {"streams": streams, "warmup_steps": 4, "compare_streams": compare,
+    return _write(tmp, config, {"streams": streams}, streams, compare)
+
+
+def _ensemble_config() -> dict:
+    """vlp16_mc's world and sensor at a 4096-point buffer and a 40,000-point
+    world."""
+    with open(os.path.join(manifest.BENCH_DIR, "configs", "vlp16_mc.json")) as f:
+        config = json.load(f)
+    config.update(name="small", overrides=SMALL_MC, pipeline=pipeline("default", SMALL_MC))
+    config["world"] = dict(config["world"], n_points=40000)
+    config["drive"] = dict(config["drive"], points=4096)
+    config["limits"] = {"pose_gap_m": 0.01, "pose_gap_rad": 0.001, "sigma_gap_rel": 1e-9,
+                        "map_off_share": 0.01, "ref_out_of_box": 0, "scans_compared": 5,
+                        "scan_gap": 0}
+    return config
+
+
+def _write(tmp: str, config: dict, mix_streams: dict, streams: int, compare: int) -> str:
+    mix = {**mix_streams, "warmup_steps": 4, "compare_streams": compare,
            "profile_steps": 3, "enqueue_steps": 2, "opcount_steps": 1}
     os.makedirs(os.path.join(tmp, "configs"), exist_ok=True)
     os.makedirs(os.path.join(tmp, "mixes"), exist_ok=True)
@@ -60,8 +92,9 @@ def build(tmp: str, preset: str = "kitti_64beam", streams: int = 4, compare: int
         json.dump(config, f)
     with open(os.path.join(tmp, "mixes", f"s{streams}.json"), "w") as f:
         json.dump(mix, f)
-    shutil.copytree(os.path.join(manifest.BENCH_DIR, "metrics"), os.path.join(tmp, "metrics"),
-                    dirs_exist_ok=True)
+    for folder in ("metrics", "drivers"):
+        shutil.copytree(os.path.join(manifest.BENCH_DIR, folder), os.path.join(tmp, folder),
+                        dirs_exist_ok=True, ignore=shutil.ignore_patterns("__pycache__"))
     man = manifest.load_manifest(os.path.dirname(manifest.BENCH_DIR))
     name = f"small.s{streams}"
     man["configs"] = [{"name": "small", "source": "odom_bench/tests/cells.py",

@@ -10,7 +10,7 @@ import os
 import pytest
 
 from odom_bench import harness
-from odom_bench.common import manifest
+from odom_bench.common import manifest, pipeline
 from odom_bench.tests import cells
 
 ROOT = os.path.dirname(manifest.BENCH_DIR)
@@ -29,7 +29,7 @@ def test_top_level_keys_and_paths():
 def test_cell_resolves(cell):
     c = manifest.resolve(ROOT, cell)
     assert c.chips == 1
-    harness.port_config(c.config)  # the file's pipeline is what runs
+    pipeline.port_config(c.config)  # the file's pipeline is what runs
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     assert set(c.config["reduced"]) == set(

@@ -27,7 +27,8 @@ from odom_bench.common import manifest, spans  # noqa: E402
 
 METRICS = ("preprocess_device_ms", "map_device_ms", "icp_fetch_device_ms",
            "register_self_device_ms")
-HARNESS = ("odom_bench.gather", "odom_bench.preprocess", "odom_bench.register")
+HARNESS = ("odom_bench.gather", "odom_bench.preprocess", "odom_bench.perturb",
+           "odom_bench.register")
 K5 = "gn_cluster_kernel"
 
 
