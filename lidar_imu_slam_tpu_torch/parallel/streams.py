@@ -11,6 +11,11 @@ round one launch of kernel K5 (`fused_gn_batched`, one thread-block
 cluster per stream) with gn_backend="pallas", or the f64 GN iterations of
 `icp_registration_unrolled` with gn_backend="xla". No step reads the
 device from the host.
+
+The LiDAR-inertial form (`init_batched_lio_state`, `batched_lio_step`)
+carries each stream's full filter (the 30-dim inner state and its pose
+trail, f64) beside its odometry state and registers through the same
+`register_core`; `perturb_imu` draws a Monte-Carlo ensemble's IMU noise.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import dataclasses
 import torch
 
 from ..config import PipelineConfig
-from ..models import kiss_icp
+from ..models import ekf, kiss_icp, lio
 from ..ops.preprocess import Scan
 
 
@@ -82,4 +87,50 @@ def perturb_scans(scan: Scan, generator: torch.Generator, num_streams: int,
         mask=scan.mask.expand((s,) + scan.mask.shape),
         t_begin=scan.t_begin.expand(s),
         t_end=scan.t_end.expand(s),
+    )
+
+
+def init_batched_lio_state(cfg: PipelineConfig, num_streams: int,
+                           device: torch.device | str = "cuda") -> lio.LioState:
+    """S fresh LIO states on a leading stream axis (map, filter, IMU
+    initialization and the constant-velocity history of each stream)."""
+    return lio.init_state(cfg, device, streams=num_streams)
+
+
+def batched_lio_step(states: lio.LioState, scans: Scan, packets: ekf.ImuPacket,
+                     cfg: PipelineConfig, init_samples: int = 0):
+    """`lio.step` over the leading stream axis, updating the map tables of
+    `states` in place (the caller must not reuse `states`); no host read.
+    `packets` holds each stream's IMU samples of the scan (S, M, ...).
+
+    `init_samples` is the caller's host-side count, a lower bound, of the
+    IMU samples every stream's static initialization had consumed before
+    this step (the valid samples of the packets it built): from
+    `cfg.imu.max_init_count` on, every stream is initialized and the step
+    runs the IMU branch alone; below it, both branches run and each stream
+    takes its own. Returns (states', LioOutput), the outputs' leaves with a
+    leading S but for `streams_initialized` and `streams_imu`."""
+    _check_batched(cfg)
+    ready = init_samples >= cfg.imu.max_init_count
+    return lio.step_streams(states, scans, packets, cfg, imu_ready=ready, inplace=True)
+
+
+def perturb_imu(packet: ekf.ImuPacket, generator: torch.Generator, num_streams: int,
+                gyro_sigma: float, acc_sigma: float) -> ekf.ImuPacket:
+    """Monte-Carlo helper: replicate one IMU packet (M samples) across
+    `num_streams` streams with iid normal noise of `gyro_sigma` (rad/s) on
+    each gyro and `acc_sigma` (m/s^2) on each accelerometer axis of the
+    valid samples (padding stays untouched), drawn from `generator` (on the
+    packet's device) as one (S, M, 6) f64 normal draw, gyro first."""
+    g = packet.gyro
+    if generator.device.type != g.device.type:
+        raise ValueError(f"generator on {generator.device}, packet on {g.device}")
+    s = num_streams
+    noise = torch.randn((s,) + tuple(g.shape[:-1]) + (6,), generator=generator, dtype=g.dtype,
+                        device=g.device) * packet.mask[:, None]
+    return ekf.ImuPacket(
+        time=packet.time.expand((s,) + packet.time.shape),
+        gyro=g + noise[..., :3] * gyro_sigma,
+        acc=packet.acc + noise[..., 3:] * acc_sigma,
+        mask=packet.mask.expand((s,) + packet.mask.shape),
     )
