@@ -16,6 +16,9 @@ The LiDAR-inertial form (`init_batched_lio_state`, `batched_lio_step`)
 carries each stream's full filter (the 30-dim inner state and its pose
 trail, f64) beside its odometry state and registers through the same
 `register_core`; `perturb_imu` draws a Monte-Carlo ensemble's IMU noise.
+`LioStepGraph` replays the LIO step of initialized streams as one CUDA
+graph: the step is a few thousand small launches, more than the host can
+enqueue far ahead of the card.
 """
 
 from __future__ import annotations
@@ -23,10 +26,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils import _pytree
 
 from ..config import PipelineConfig
 from ..models import ekf, kiss_icp, lio
 from ..ops.preprocess import Scan
+from ..utils.profiling import _profiler_enabled
 
 
 def batch_config(cfg: PipelineConfig, outer: int = 2, inner: int = 4) -> PipelineConfig:
@@ -108,7 +113,10 @@ def batched_lio_step(states: lio.LioState, scans: Scan, packets: ekf.ImuPacket,
     this step (the valid samples of the packets it built): from
     `cfg.imu.max_init_count` on, every stream is initialized and the step
     runs the IMU branch alone; below it, both branches run and each stream
-    takes its own. Returns (states', LioOutput), the outputs' leaves with a
+    takes its own. The step does not check the count (that would read the
+    device): it is the caller's invariant. A count above what every stream
+    consumed runs the IMU branch on a stream whose initialization is open,
+    which then never seeds its filter. Returns (states', LioOutput), the outputs' leaves with a
     leading S but for `streams_initialized` and `streams_imu`."""
     _check_batched(cfg)
     ready = init_samples >= cfg.imu.max_init_count
@@ -134,3 +142,77 @@ def perturb_imu(packet: ekf.ImuPacket, generator: torch.Generator, num_streams: 
         acc=packet.acc + noise[..., 3:] * acc_sigma,
         mask=packet.mask.expand((s,) + packet.mask.shape),
     )
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+def _write_leaves(dst, src) -> None:
+    """Copy every tensor of `src` into the tensor in the same place of `dst`
+    (the same structure, shapes and dtypes), skipping those that already are
+    that tensor (a map table updated in place). A source that shares memory
+    with a tensor about to be written is read out first."""
+    d, s = _pytree.tree_leaves(dst), _pytree.tree_leaves(src)
+    if len(d) != len(s):
+        raise ValueError(f"{len(s)} leaves into {len(d)}")
+    pairs = [(a, b) for a, b in zip(d, s) if not _same(a, b)]
+    for a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"{tuple(b.shape)} {b.dtype} into {tuple(a.shape)} {a.dtype}")
+    written = {a.untyped_storage().data_ptr() for a, _ in pairs}
+    pairs = [(a, b.clone() if b.untyped_storage().data_ptr() in written else b)
+             for a, b in pairs]
+    for a, b in pairs:
+        a.copy_(b)
+
+
+class LioStepGraph:
+    """`batched_lio_step` of S streams whose static initializations are all
+    done (the IMU branch alone), captured once as a CUDA graph and replayed:
+    one graph launch a step in place of its few thousand kernel launches.
+
+        graph = LioStepGraph(states, scans, packets, cfg)  # captures only
+        states, out = graph(states, scans, packets)  # each step
+
+    It is built from the live states (after at least one eager step of the
+    IMU branch, which builds what the step caches on the card) and one
+    step's scans and packets, which fix the shapes. Each call copies its
+    scans and packets, and any state tensor that is not the graph's own (a
+    caller that replaced one), into the graph's buffers and replays the
+    step. The states it returns are the graph's (the same tensors every
+    call, written in place); its outputs are the graph's too, and the next
+    call writes over them: clone what is kept. While a profiler records,
+    the call runs the same step eagerly on the same buffers (the kernels
+    the graph holds), so that the step's spans hold its device work."""
+
+    def __init__(self, states: lio.LioState, scans: Scan, packets: ekf.ImuPacket,
+                 cfg: PipelineConfig):
+        _check_batched(cfg)
+        if states.ekf.m.device.type != "cuda":
+            raise ValueError("a CUDA graph needs the states on a CUDA card")
+        self.cfg = cfg
+        self.states = states
+        self.scans = _pytree.tree_map(torch.clone, scans)
+        self.packets = _pytree.tree_map(torch.clone, packets)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the eager steps' cached blocks, for the graph's pool
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = self._step()
+
+    def _step(self) -> lio.LioOutput:
+        new, out = lio.step_streams(self.states, self.scans, self.packets, self.cfg,
+                                    imu_ready=True, inplace=True)
+        _write_leaves(self.states, new)
+        return out
+
+    def __call__(self, states: lio.LioState, scans: Scan, packets: ekf.ImuPacket):
+        _write_leaves(self.states, states)
+        _write_leaves(self.scans, scans)
+        _write_leaves(self.packets, packets)
+        if _profiler_enabled():
+            return self.states, self._step()
+        self.graph.replay()
+        return self.states, self.out

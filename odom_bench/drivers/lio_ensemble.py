@@ -9,10 +9,15 @@ once, builds the E IMU packets of the step (the circuit's exact angular
 rate and specific force, gravity included, at `imu_rate`: samples at
 k dt + i / imu_rate, i = 1 .. imu_rate dt), copies each scan and packet
 into its M streams with iid point noise (`parallel.streams.perturb_scans`)
-and then iid gyro and accelerometer noise (`perturb_imu`), both from one
-generator on the card reseeded from (seed, k, ensemble), and runs the
-port's `parallel.streams.batched_lio_step`, telling it how many IMU
-samples every stream has had. Poses are at scan end (ATE shift 1.0).
+and iid gyro and accelerometer noise (`perturb_imu`), each from the card's
+generator reseeded from (seed, k, ensemble) (the IMU noise under seeds of
+its own), and runs the port's `parallel.streams.batched_lio_step`,
+telling it how many IMU samples every stream has had. Once that count says
+every stream is initialized and one step has run the IMU branch alone,
+the step is captured as a CUDA graph (`streams.LioStepGraph`) and replayed
+from then on. Poses are at scan end (ATE shift 1.0). What it shares with
+the lidar-only ensemble (lap offsets, the scans' gather, preprocess and
+point noise) is `drivers/ensemble.py`'s.
 
 The reference (`reference/lio.py`) follows the compared streams from step
 0 on its own preprocess of the raw scans and its own packets, with the
@@ -37,12 +42,12 @@ import torch
 from odom_bench import check
 from odom_bench.common import ate as ate_mod
 from odom_bench.common import manifest, render
-from odom_bench.common.pipeline import port_config
+from odom_bench.drivers import ensemble
 from odom_bench.reference import lio as ref_lio
-from odom_bench.reference import odometry as ref_mod
 
 GRAVITY = 9.81
 MEAN = 16  # the compared filter mean: position, velocity, orientation, gyro and acc bias
+IMU_NOISE = 512  # an ensemble e's IMU noise is drawn from noise_seed(k, IMU_NOISE + e)
 
 
 def circuit_imu(drive: dict, phases: np.ndarray) -> np.ndarray:
@@ -62,58 +67,39 @@ def circuit_imu(drive: dict, phases: np.ndarray) -> np.ndarray:
     return np.concatenate([gyro, f_b], -1)
 
 
-class Driver:
+class Driver(ensemble.Driver):
     """The cell's E ensembles of M perturbed LIO streams and the port's
     batched LIO step over them."""
 
-    MAP_FIELDS = ("keys", "packed", "npts")  # the map tables `compare` reads
-
     def __init__(self, cell: manifest.Cell, seed: int, device):
-        from lidar_imu_slam_tpu_torch.parallel import streams
-
-        self.streams = streams
-        self.cell = cell
-        self.cfg = port_config(cell.config)
-        if not self.cfg.map.packed_nn:
-            raise ValueError("the ensemble compares the port's packed map mirror")
-        mix = cell.mix
-        self.e, self.m = int(mix["ensembles"]), int(mix["members"])
-        self.s = self.e * self.m
-        self.noise_sigma = float(mix["noise_sigma"])
-        self.gyro_sigma, self.acc_sigma = float(mix["gyro_sigma"]), float(mix["acc_sigma"])
-        self.seed = int(seed)
-        self.device = device
-        t0 = time.perf_counter()
-        self.drive = render.render_drive(cell.config, seed, device)
+        super().__init__(cell, seed, device)
+        self.states = None  # the lidar-only states; the LIO state carries its own maps
         if self.drive.time is None:
             raise ValueError("the LIO ensemble deskews by per-point times: a rolling drive")
-        self.lap = self.drive.xyz.shape[0]
-        drive = cell.config["drive"]
+        if self.e > IMU_NOISE:
+            raise ValueError(f"{self.e} ensembles: at most {IMU_NOISE}")
+        t0 = time.perf_counter()
+        mix, drive = cell.mix, cell.config["drive"]
+        self.gyro_sigma, self.acc_sigma = float(mix["gyro_sigma"]), float(mix["acc_sigma"])
         self.dt = float(drive["dt"])
         self.per_scan = int(round(float(mix["imu_rate"]) * self.dt))
         self.cap = self.cfg.imu.max_samples_per_scan
         if self.per_scan > self.cap:
             raise ValueError(f"{self.per_scan} IMU samples a scan > packet capacity {self.cap}")
-        rng = np.random.default_rng(seed)
-        self.offsets = rng.choice(self.lap, size=self.e, replace=self.e > self.lap)
-        table = (self.offsets[None, :] + np.arange(self.lap)[:, None]) % self.lap
-        self.table = torch.as_tensor(table, dtype=torch.int64, device=device)
         # the IMU of every lap position's scan: (L, per_scan, 6) f64
         frac = np.arange(1, self.per_scan + 1) / self.per_scan
         imu = circuit_imu(drive, np.arange(self.lap)[:, None] + frac[None, :])
         self.imu = torch.as_tensor(imu, dtype=torch.float64, device=device)
         self.imu_t = torch.as_tensor(frac * self.dt, dtype=torch.float64, device=device)
         self.rel_time = self.drive.time - self.drive.stamp[:, None]  # (L, P) from the scan's stamp
-        n = self.drive.xyz.shape[1]
-        self.mask = torch.ones((self.e, n), dtype=torch.bool, device=device)
-        self.gen = torch.Generator(device=device)
-        self.lio = streams.init_batched_lio_state(self.cfg, self.s, device)
+        self.lio = self.streams.init_batched_lio_state(self.cfg, self.s, device)
         self.states = types.SimpleNamespace(map=self.lio.odo.map)  # what the harness reads
-        self.render_s = time.perf_counter() - t0
-        self.poses, self.sigmas, self.guesses, self.means = [], [], [], []
-        self.k = 0
+        self.render_s += time.perf_counter() - t0
+        self.guesses, self.means = [], []
         self.seen = 0  # IMU samples every stream has had (the packets' own)
-        self.last = None  # (k, scans, packets, output) of the last step
+        self.imu_steps = 0  # eager steps of the IMU branch alone
+        self.graph = None  # the step as a CUDA graph, once every stream is initialized
+        self.cuda = torch.device(device).type == "cuda"
         self.ekf_end = None  # the filter after the last step
 
     def raw(self, k: int, ens=None):
@@ -144,28 +130,18 @@ class Driver:
         mask[:, :p] = True
         return t, vals[..., :3], vals[..., 3:], mask
 
-    def noise_seed(self, k: int, e: int) -> int:
-        return ((self.seed * 1_000_003 + k) * 1024 + e) % (1 << 63)
-
     def batch(self, k: int):
         """The S perturbed scans and packets of step k, as the step takes them."""
         from lidar_imu_slam_tpu_torch.models.ekf import ImuPacket
-        from lidar_imu_slam_tpu_torch.ops.preprocess import Scan, preprocess_scan
 
-        with torch.profiler.record_function("odom_bench.gather"):
-            raw = self.raw(k)
-            pk = ImuPacket(*self.packets(k))
-        with torch.profiler.record_function("odom_bench.preprocess"):
-            scans = preprocess_scan(raw, self.cfg.lidar)
+        scans = super().batch(k)
         with torch.profiler.record_function("odom_bench.perturb"):
-            parts, imus = [], []
+            pk = ImuPacket(*self.packets(k))
+            imus = []
             for e in range(self.e):
-                self.gen.manual_seed(self.noise_seed(k, e))
-                parts.append(self.streams.perturb_scans(Scan(*(f[e] for f in scans)), self.gen,
-                                                        self.m, self.noise_sigma))
+                self.gen.manual_seed(self.noise_seed(k, IMU_NOISE + e))
                 imus.append(self.streams.perturb_imu(ImuPacket(*(f[e] for f in pk)), self.gen,
                                                      self.m, self.gyro_sigma, self.acc_sigma))
-            scans = Scan(*(torch.cat(f) for f in zip(*parts)))
             packets = ImuPacket(*(torch.cat(f) for f in zip(*imus)))
         return scans, packets
 
@@ -174,60 +150,58 @@ class Driver:
         the faults)."""
         scans, packets = self.batch(self.k)
         with torch.profiler.record_function("odom_bench.register"):
-            if run is None:
-                self.lio, out = self.streams.batched_lio_step(self.lio, scans, packets, self.cfg,
-                                                              init_samples=self.seen)
-            else:
+            if run is not None:
                 self.lio, out = run(self.lio, scans, packets)
+            else:
+                ready = self.seen >= self.cfg.imu.max_init_count
+                if self.graph is None and ready and self.cuda and self.imu_steps:
+                    self.graph = self.streams.LioStepGraph(self.lio, scans, packets, self.cfg)
+                if self.graph is not None:
+                    self.lio, out = self.graph(self.lio, scans, packets)
+                else:
+                    self.lio, out = self.streams.batched_lio_step(
+                        self.lio, scans, packets, self.cfg, init_samples=self.seen)
+                    self.imu_steps += ready
         self.record(scans, packets, out, self.lio.ekf, self.lio.odo.map)
 
     def record(self, scans, packets, out, ekf_state, map_):
-        """Keep what `compare` reads of the step just taken."""
+        """Keep what `compare` reads of the step just taken (copies: a graph's
+        outputs are written over by its next replay)."""
         self.seen += self.per_scan
-        self.poses.append(out.pose)
-        self.sigmas.append(out.sigma)
-        self.guesses.append(out.guess)
-        self.means.append(ekf_state.m[:, :MEAN].to(torch.float64).contiguous())
+        self.poses.append(out.pose.clone())
+        self.sigmas.append(out.sigma.clone())
+        self.guesses.append(out.guess.clone())
+        self.means.append(ekf_state.m[:, :MEAN].to(torch.float64, copy=True))
         self.last = (self.k, scans, packets, out)
         self.ekf_end = ekf_state
         self.states = types.SimpleNamespace(map=map_)
         self.k += 1
 
     # -- the reference ----------------------------------------------------
-    def _draws(self, k: int, cols):
-        """Step k's point noise (B, N, 3) f32 and IMU noise (B, cap, 6) f64
-        of the streams `cols`, drawn again as the step drew them."""
-        n = self.drive.xyz.shape[1]
-        pts = torch.empty((cols.numel(), n, 3), dtype=torch.float32, device=self.device)
-        imu = torch.empty((cols.numel(), self.cap, 6), dtype=torch.float64, device=self.device)
+    def imu_noise(self, k: int, cols) -> torch.Tensor:
+        """Step k's IMU noise (B, cap, 6) f64 of the streams `cols` (B,), before
+        its sigmas and the packet mask, drawn again as the step drew it."""
+        out = torch.empty((cols.numel(), self.cap, 6), dtype=torch.float64, device=self.device)
         gen = torch.Generator(device=self.device)
         for e in torch.unique(cols // self.m).tolist():
-            gen.manual_seed(self.noise_seed(k, e))
+            gen.manual_seed(self.noise_seed(k, IMU_NOISE + e))
             here = (cols // self.m) == e
-            rows = cols[here] % self.m
-            draw = torch.randn((self.m, n, 3), generator=gen, dtype=torch.float32,
-                               device=self.device) * self.noise_sigma
-            pts[here] = draw[rows]
-            imu[here] = torch.randn((self.m, self.cap, 6), generator=gen, dtype=torch.float64,
-                                    device=self.device)[rows]
-        return pts, imu
+            out[here] = torch.randn((self.m, self.cap, 6), generator=gen, dtype=torch.float64,
+                                    device=self.device)[cols[here] % self.m]
+        return out
 
     def ref_inputs(self, k: int, cols):
         """The reference's own preprocess of step k's raw scans and its own
         packets, with the step's noise of the streams `cols` added: (points,
         tau, rel_t, mask, t_begin, t_end, times, gyro, acc, packet mask)."""
+        pts, tau, mask = super().ref_inputs(k, cols)
         ens, inv = torch.unique(cols // self.m, return_inverse=True)
         raw = self.raw(k, ens)
-        lidar = self.cell.config["pipeline"]["lidar"]
-        pts, tau, mask = ref_mod.preprocess(raw.xyz, raw.time, raw.ring, raw.mask, raw.stamp,
-                                            lidar)
-        rel, tb, te = ref_lio.scan_times(raw.time, raw.stamp, mask)
+        rel, tb, te = ref_lio.scan_times(raw.time[inv], raw.stamp[inv], mask)
         t, g, a, pm = (x[inv] for x in self.packets(k, ens))
-        pts, tau, rel, mask, tb, te = pts[inv], tau[inv], rel[inv], mask[inv], tb[inv], te[inv]
-        dp, di = self._draws(k, cols)
-        di = di * pm[..., None]
-        return (pts + dp * mask[..., None], tau, rel, mask, tb, te, t,
-                g + di[..., :3] * self.gyro_sigma, a + di[..., 3:] * self.acc_sigma, pm)
+        di = self.imu_noise(k, cols) * pm[..., None]
+        return (pts, tau, rel, mask, tb, te, t, g + di[..., :3] * self.gyro_sigma,
+                a + di[..., 3:] * self.acc_sigma, pm)
 
     def reference(self, b: int, pose_dtype=torch.float64) -> ref_lio.RefLio:
         cfg = self.cell.config
@@ -256,7 +230,7 @@ class Driver:
         numbers of `check` and the filter's. poses (steps, S, 4, 4), sigmas
         (steps, S) on the device; port_map holds MAP_FIELDS of the compared
         streams."""
-        self.lio = None  # the port's state is done with
+        self.lio = self.graph = None  # the port's state is done with
         ref = self.reference(cols.numel())
         own, ref_sig = [], []
         mean_gap, extra = 0.0, {}

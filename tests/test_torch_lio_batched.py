@@ -30,8 +30,13 @@ and 1, and the fourth stream's point noise differs. Compared:
   guesses: the tolerances in the test), with the reference's filter in f32
   failing that comparison.
 
+Also: the step written into its own state tensors (`streams.
+_write_leaves`, the body of `streams.LioStepGraph`) bit for bit the step.
+
 `cuda`-marked: the batched step under `torch.cuda.set_sync_debug_mode
-("error")`, and the card against the CPU.
+("error")`, and the card against the CPU; the step as a CUDA graph
+(`streams.LioStepGraph`) against the eager step on the card, a state
+tensor replaced between two replays included.
 """
 
 import dataclasses
@@ -122,6 +127,9 @@ def _run_batched(drive, cfg, device="cpu", hook=None):
             hook(i, state, scans, packets, seen)
         state, out = streams.batched_lio_step(state, scans, packets, cfg, init_samples=seen)
         seen += min(SAMPLES)
+        # the caller's invariant: its count is a lower bound of what every
+        # stream's initialization has consumed (up to the count it needs)
+        assert bool((state.imu_init.count >= min(seen, cfg.imu.max_init_count)).all())
         outs.append(out)
     return state, outs
 
@@ -321,3 +329,76 @@ def test_batched_step_on_the_card_syncs_nothing_and_matches_the_cpu(drive, batch
         card.append(out.pose.cpu())
     for i in range(N_SCANS):
         _close_pose(card[i].numpy(), outs[i].pose.numpy(), 1e-4)
+
+
+def test_step_written_into_its_state_is_the_step(drive, batched):
+    """`LioStepGraph`'s body on the CPU: the IMU-only step on a state, then
+    its result written into that state's own tensors, gives the step's
+    state bit for bit (the map tables it updated in place skipped)."""
+    cfg, states, _, _ = batched
+    k = 5
+    scans, packets, _, _ = _inputs(drive, cfg, k)
+    want, _ = streams.batched_lio_step(torch.utils._pytree.tree_map(torch.clone, states[k]),
+                                       scans, packets, cfg, init_samples=k * min(SAMPLES))
+    own = torch.utils._pytree.tree_map(torch.clone, states[k])
+    ptrs = [x.data_ptr() for x in torch.utils._pytree.tree_leaves(own)]
+    new, _ = tlio.step_streams(own, scans, packets, cfg, imu_ready=True, inplace=True)
+    streams._write_leaves(own, new)
+    assert [x.data_ptr() for x in torch.utils._pytree.tree_leaves(own)] == ptrs
+    for x, y in zip(torch.utils._pytree.tree_leaves(own), torch.utils._pytree.tree_leaves(want)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_write_leaves_reads_an_aliased_source_first():
+    a, b = torch.arange(4.0), torch.arange(4.0) + 10
+    streams._write_leaves((a, b), (b, a))  # a swap: each source is the other's target
+    assert a.tolist() == [10.0, 11.0, 12.0, 13.0] and b.tolist() == [0.0, 1.0, 2.0, 3.0]
+    with pytest.raises(ValueError):
+        streams._write_leaves((a,), (torch.zeros(3),))
+
+
+def test_step_graph_needs_a_card(batched):
+    cfg, states, _, _ = batched
+    with pytest.raises(ValueError):
+        streams.LioStepGraph(states[5], None, None, cfg)
+
+
+@pytest.mark.cuda
+def test_graphed_step_on_the_card_matches_the_eager_step(drive, batched):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the port's kernels")
+    cfg = batched[0]
+    dev = torch.device("cuda", 0)
+
+    def run(graphed):
+        state = streams.init_batched_lio_state(cfg, S, dev)
+        seen, graph, outs = 0, None, []
+        for i in range(N_SCANS):
+            scans, packets, _, _ = _inputs(drive, cfg, i, dev)
+            if graphed and graph is None and i >= 5:  # after an eager IMU-only step
+                assert seen >= cfg.imu.max_init_count
+                graph = streams.LioStepGraph(state, scans, packets, cfg)
+            if graph is not None:
+                state, out = graph(state, scans, packets)
+            else:
+                state, out = streams.batched_lio_step(state, scans, packets, cfg,
+                                                      init_samples=seen)
+            if i == 6:  # a caller that replaces a state tensor between two steps
+                m = state.ekf.m.clone()
+                m[1, 0] += 0.05
+                state = state._replace(ekf=state.ekf._replace(m=m))
+            seen += min(SAMPLES)
+            outs.append(torch.utils._pytree.tree_map(torch.clone, out))
+        return state, outs
+
+    eager_state, eager = run(False)
+    graph_state, graphed = run(True)
+    for i in range(N_SCANS):
+        _close_pose(graphed[i].pose.cpu().numpy(), eager[i].pose.cpu().numpy(), 1e-9)
+        assert torch.equal(graphed[i].used_imu, eager[i].used_imu)
+    for x, y in zip(torch.utils._pytree.tree_leaves(graph_state.ekf),
+                    torch.utils._pytree.tree_leaves(eager_state.ekf)):
+        np.testing.assert_allclose(x.cpu().double().numpy(), y.cpu().double().numpy(),
+                                   rtol=0, atol=1e-9)
+    for x, y in zip(graph_state.odo.map, eager_state.odo.map):
+        assert torch.equal(x, y)
