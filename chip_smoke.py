@@ -38,6 +38,14 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    about the cell's live voxels; and 128 x 8192 at NB 27) bit-equal and
    timed (kernel per call and device, the path's fetch with its anchor
    terms, the plain version) beside its bound by bytes;
+4c. the IMU deskew kernel (`csrc/imu_deskew.cu`): its points bit-equal to
+   the plain per-point pass's and a repeated launch bit-equal on every case
+   of tools/deskew_cases.py (64 x 16,384 points of the LIO ensemble's
+   drive, no stream axis, masked NaN points, times on an offset or past
+   the last one, a three-sample packet, the small-angle branch, the LIO
+   slice's 131,072 points and 17-entry trail), then at
+   the LIO ensemble's 4096 x 16,384 bit-equal and timed (kernel per call
+   and device, the plain version) beside its bound by bytes;
 5. K6 `nn_bruteforce` at the classic path's shape (4096 queries x a
    1,310,720-entry pool, ~30% +inf, 256 exact ties) and on every
    adversarial case of tools/nn_cases.py at that shape: indices and d^2
@@ -84,9 +92,12 @@ Needs one CUDA card, nvcc, and this checkout (it drives
    `lio.step_donated`, eviction / compaction every 10 scans. Host reads
    per scan over scans 0-19 by call site and ops dispatched per scan;
    launch counters zeroed just
-   before the timed run: K2 and K3 once per scan, K1 launched. Poses
+   before the timed run: K2 and K3 once per scan, K1 launched, the IMU
+   deskew kernel once per IMU-branch scan. Poses
    finite, `used_imu` on every scan after static init, ATE at the scan end
-   at most LIO_ATE_LIMIT_M;
+   at most LIO_ATE_LIMIT_M; then the drive again up to two IMU-branch
+   scans, each scan's deskew kernel output bit-equal to the plain
+   per-point pass on the same inputs;
 9. K6 on its path: the classic map's pool queried with the last scan's
    keypoints, against the plain version and the hash fetch
    `voxel_map.nearest_neighbors` (never farther; equal wherever the hash
@@ -1466,6 +1477,75 @@ def fetch_kernel_phase(dev) -> dict:
                 shapes=shapes)
 
 
+def _ulps_of_norm(out, ref) -> tuple[float, int]:
+    """The largest |out - ref| of a point's coordinate in ulps of the
+    point's norm, and the count of coordinates whose bits differ."""
+    import torch
+
+    norm = torch.linalg.norm(ref, dim=-1, keepdim=True)
+    ulp = torch.nextafter(norm, torch.full_like(norm, float("inf"))) - norm
+    bad = out.view(torch.int32) != ref.view(torch.int32)
+    worst = float(((out - ref).abs() / ulp)[bad].max()) if bool(bad.any()) else 0.0
+    return worst, int(bad.sum())
+
+
+def deskew_kernel_phase(dev) -> dict:
+    """The IMU deskew kernel against the plain per-point pass: bit-equal on
+    every case of tools/deskew_cases.py and a repeated launch bit-equal;
+    then at the LIO ensemble's shape (4096 x 16,384 points,
+    `deskew_cases.deployment`) bit-equal again and timed: the kernel alone
+    (CUDA events; device: queued behind a stream sleep) and the plain
+    version, beside the bound (the points, their f64 times and mask read
+    once, the points written once, the trail tables and per-stream terms
+    read once)."""
+    import torch
+
+    from lidar_imu_slam_tpu_torch.models import ekf
+    from lidar_imu_slam_tpu_torch.ops.kernels import imu_deskew as ik
+    from lidar_imu_slam_tpu_torch.tools import deskew_cases
+
+    print("deskew imu_deskew_kernel, ptxas: " + "; ".join(_ptxas_lines("imu_deskew_kernel")))
+    worst = {}
+    for case in deskew_cases.CASES:
+        args = deskew_cases.case(case, dev)
+        out, again = ekf.deskew_points(*args), ekf.deskew_points(*args)
+        _require(torch.equal(out.view(torch.int32), again.view(torch.int32)),
+                 f"deskew {case}: a repeated launch is not bit-equal")  # NaN points included
+        worst[case] = _ulps_of_norm(out, ekf.deskew_points_plain(*args))
+        del args, out, again
+    print(f"deskew: (largest gap in ulps of the point's norm, coordinates that differ) from the "
+          f"plain version, by case: {worst}")
+    _require(not any(n for _, n in worst.values()),
+             "deskew: the kernel's points differ from the plain version's")
+    args = deskew_cases.deployment(dev)
+    out = ik.imu_deskew(*args)
+    ref = ekf.deskew_points_plain(*args)
+    gap = _ulps_of_norm(out, ref)
+    _require(gap[1] == 0, f"deskew at 4096 x 16,384: the kernel differs from the plain "
+             f"version: {gap}")
+    del ref
+    s, n = args[0].shape[:2]
+    m = args[3].shape[-1]
+    bound, by = _bound_ms(_nbytes(*args, out), 0.0)
+    t = dict(ms=_cuda_ms(lambda: ik.imu_deskew(*args), 20),
+             device_ms=_device_ms(lambda: ik.imu_deskew(*args), 20),
+             plain_ms=_cuda_ms(lambda: ekf.deskew_points_plain(*args), 3), bound_ms=bound,
+             bound_by=by, bytes=_nbytes(*args, out))
+    t["roofline_pct"] = 100.0 * bound / t["device_ms"]
+    print(f"deskew {s} x {n} (M {m}): kernel {t['ms']:.4f} ms/launch (device "
+          f"{t['device_ms']:.4f}; {t['roofline_pct']:.1f}% of the bound), plain "
+          f"{t['plain_ms']:.3f} ms/call; bound {bound:.4f} ms ({by}: {t['bytes'] / 1e9:.3f} GB)")
+    del args, out
+    torch.cuda.empty_cache()
+    return dict(name="imu_deskew", route="cuda",
+                source="lidar_imu_slam_tpu_torch/csrc/imu_deskew.cu",
+                replaces="none (the JAX per-point deskew is plain jnp: "
+                         f"{REFERENCE_PKG}/models/ekf.py:motion_compensation_with_imu)",
+                max_abs_err=0.0, library_ms=None,
+                **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                roofline_pct=t["roofline_pct"])
+
+
 def _small_cfg(cfgmod, gn_backend):
     return cfgmod.PipelineConfig(
         lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048,
@@ -1807,11 +1887,15 @@ def small_lio_phase(dev):
         _require(worst <= 1e-4, f"small LIO drive ({backend}): card and CPU poses disagree")
         _require(sum(used) >= n - 3, f"small LIO drive ({backend}): the IMU branch ran "
                  f"{sum(used)} times")
+        _require(launches["imu_deskew"] == sum(used),
+                 f"small LIO drive ({backend}): the IMU deskew kernel did not run once per "
+                 "IMU-branch scan")
         if backend == "pallas":
             _require(launches["pose_pre"] == launches["pose_post"] == n,
                      "small LIO drive: K2 / K3 did not run once per scan")
         else:
-            _require(not any(launches.values()), "small LIO drive (xla) launched a kernel")
+            _require(not any(v for k, v in launches.items() if k != "imu_deskew"),
+                     "small LIO drive (xla) launched a registration kernel")
 
 
 def lio_cfg(cfg):
@@ -1832,7 +1916,7 @@ def lio_slice_phase(dev, cfg, raws, gt):
     run and read just after. Returns the drive's numbers."""
     import torch
 
-    from lidar_imu_slam_tpu_torch.models import lio
+    from lidar_imu_slam_tpu_torch.models import ekf, lio
     from lidar_imu_slam_tpu_torch.ops import voxel_map
     from lidar_imu_slam_tpu_torch.ops.kernels import _common
     from lidar_imu_slam_tpu_torch.ops.preprocess import preprocess_scan
@@ -1879,7 +1963,8 @@ def lio_slice_phase(dev, cfg, raws, gt):
     init_scan = int(np.argmax(inited)) if inited.any() else -1
     stats = dict(scans_per_s=N_SCANS / wall, p50_ms=float(np.percentile(step_ms, 50)),
                  p95_ms=float(np.percentile(step_ms, 95)), ate_m=ate,
-                 icp_iterations=float(iters.mean()), **counts)
+                 icp_iterations=float(iters.mean()),
+                 imu_deskew_launches=launches["imu_deskew"], **counts)
     print(f"LIO slice: {stats['scans_per_s']:.2f} scans/s  p50 {stats['p50_ms']:.3f} ms  "
           f"p95 {stats['p95_ms']:.3f} ms per scan (CUDA events)")
     print(f"LIO slice: ICP iterations mean {iters.mean():.2f} max {iters.max()} (JAX 6.57 / 28, "
@@ -1893,7 +1978,30 @@ def lio_slice_phase(dev, cfg, raws, gt):
     _require(launches["pose_pre"] == N_SCANS and launches["pose_post"] == N_SCANS,
              "LIO slice: K2 / K3 did not run once per scan")
     _require(launches["fused_gn_carry"] > 0, "LIO slice: K1 never launched")
+    _require(launches["imu_deskew"] == int(used.sum()),
+             "LIO slice: the IMU deskew kernel did not run once per IMU-branch scan")
     _require(ate <= LIO_ATE_LIMIT_M, f"LIO slice: ATE {ate:.4f} m above {LIO_ATE_LIMIT_M}")
+
+    # the deskew kernel on the path's own inputs (no stream axis, 131,072
+    # points, a 17-entry trail) against the plain per-point pass
+    kernel_pass, seen = ekf.deskew_points, []
+
+    def checked(*args):
+        out = kernel_pass(*args)
+        ref = ekf.deskew_points_plain(*args)
+        seen.append((tuple(args[0].shape), args[3].shape[-1],
+                     int((out.view(torch.int32) != ref.view(torch.int32)).sum())))
+        return out
+
+    ekf.deskew_points = checked
+    try:
+        run(init_scan + 3)
+    finally:
+        ekf.deskew_points = kernel_pass
+    print(f"LIO slice: deskew kernel against the plain pass on the path (points, trail "
+          f"entries, coordinates that differ): {seen}")
+    _require(len(seen) >= 2 and not any(d for _, _, d in seen),
+             "LIO slice: the deskew kernel's points differ from the plain pass's on the path")
     return stats
 
 
@@ -3425,6 +3533,7 @@ def main(argv=None) -> int:
     kernels = kernel_phase(dev, cfg)
     pose_chain_cases_phase(dev)
     kernels += batched_kernel_phase(dev, cfg, cfgmod) + [fetch_kernel_phase(dev),
+                                                         deskew_kernel_phase(dev),
                                                          nn_kernel_phase(dev)]
     probe_kernels, probe_launches = probe_phase(dev)
     kernels += probe_kernels
@@ -3439,6 +3548,7 @@ def main(argv=None) -> int:
     kernels.append(dense["spread"])  # K1 over several clusters
     launches["gn_spread"] = dense["spread"]["launches"]  # phase 23's drive
     lio = lio_slice_phase(dev, cfg, raws, gt)
+    launches["imu_deskew"] = lio["imu_deskew_launches"]
     state64, out64 = classic_slice_phase(dev, cfg64, raws, gt)
     launches["nn_bruteforce"] = nn_on_path_phase(dev, cfg64, state64, out64)
     del state64, out64

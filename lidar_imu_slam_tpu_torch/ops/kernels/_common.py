@@ -27,7 +27,7 @@ LAUNCHES: dict[str, int] = {"fused_gn_carry": 0, "pose_pre": 0, "pose_post": 0,
                             "fused_gn": 0, "fused_gn_batched": 0, "nn_bruteforce": 0,
                             "take_rows": 0, "take_lanes": 0, "gn_proto": 0,
                             "gn_spread": 0,  # K1 / K4 launches over several clusters
-                            "candidate_fetch": 0}
+                            "candidate_fetch": 0, "imu_deskew": 0}
 
 
 def reset_launches() -> None:

@@ -27,7 +27,14 @@ the plain version differ only by the order of the f32 block sums) and
 The ICP candidate fetch kernel writes the plain version's planes bit for
 bit (+inf positions included) on every case of tools/fetch_cases.py, and
 a 16-step batched drive of each batched preset gives bit-equal poses and
-maps with the kernel and with the plain fetch on the card.
+maps with the kernel and with the plain fetch on the card. The IMU deskew
+kernel writes the plain per-point pass's points bit for bit on every case
+of tools/deskew_cases.py (64 streams x 16,384 points of the LIO ensemble's
+drive, no stream axis, masked NaN points, times on an offset, times past
+the last one, a three-sample packet, the small-angle branch, the LIO
+slice's 131,072 points and 17-entry trail without a stream axis), and one
+IMU-branch batched LIO step launches it once and gives the poses, outputs
+and state of the same step with the plain pass, bit for bit.
 """
 
 import dataclasses
@@ -45,7 +52,7 @@ from lidar_imu_slam_tpu_torch.ops.kernels import (_common, icp_gn, nn_bruteforce
 from lidar_imu_slam_tpu_torch.ops.preprocess import (pack_raw_scan, preprocess_scan,
                                                      stack_raw_scans)
 from lidar_imu_slam_tpu_torch.parallel import streams
-from lidar_imu_slam_tpu_torch.tools import fetch_cases, nn_cases
+from lidar_imu_slam_tpu_torch.tools import deskew_cases, fetch_cases, nn_cases
 from lidar_imu_slam_tpu_torch.tools import pose_chain_cases as pose_cases
 from lidar_imu_slam_tpu_torch.tools import probes as probe_tool
 
@@ -675,3 +682,80 @@ def test_batched_drive_bit_equal_with_plain_fetch(dev, preset, monkeypatch):
     assert bool(torch.isfinite(poses).all())
     assert torch.equal(poses, poses_plain)
     assert all(torch.equal(a, b) for a, b in zip(m, m_plain))
+
+
+@pytest.mark.parametrize("case", deskew_cases.CASES)
+def test_imu_deskew_kernel_bit_equal_to_plain(dev, case):
+    from lidar_imu_slam_tpu_torch.models import ekf
+
+    args = deskew_cases.case(case, dev)
+    before = _common.LAUNCHES["imu_deskew"]
+    out = ekf.deskew_points(*args)
+    assert _common.LAUNCHES["imu_deskew"] == before + 1
+    again = ekf.deskew_points(*args)
+    assert _common.LAUNCHES["imu_deskew"] == before + 2
+    ref = ekf.deskew_points_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32 and out.is_contiguous()
+    assert torch.equal(_bits(again), _bits(out))
+    assert torch.equal(_bits(out), _bits(ref)), int((_bits(out) != _bits(ref)).sum())
+
+
+def test_batched_lio_step_launches_the_deskew_kernel_once(dev, monkeypatch):
+    from lidar_imu_slam_tpu_torch.models import ekf, lio
+
+    cfg = cfgmod.PipelineConfig(
+        lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=2048),
+        map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 12, max_probes=16,
+                             store_points=False, auto_rebuild=False, neighborhood=8),
+        icp=cfgmod.IcpConfig(max_map_points=1024, max_source_points=512, max_iterations=20,
+                             gn_backend="pallas", deskew=True, batch_unroll_outer=2,
+                             batch_unroll_inner=4),
+        ekf=cfgmod.EkfConfig(lidar_pose_trail=4),
+        imu=cfgmod.ImuConfig(max_init_count=20, max_samples_per_scan=16),
+    )
+    n_streams, n_steps, cap = 4, 4, 16
+    world = synthetic.make_world(seed=11, n_points=30000, extent=(40.0, 12.0, 5.0))
+    gt = synthetic.make_trajectory(n_poses=n_steps + 1, speed=3.0, yaw_rate=0.02, dt=0.1)
+    t, g, a = synthetic.make_imu_stream(gt, 0.1, imu_rate=100.0)
+    cut = np.searchsorted(t, 0.1 * np.arange(n_steps + 1) + 1e-9)
+
+    def inputs(i):
+        raws = []
+        for s in range(n_streams):
+            pts, rel = synthetic.render_scan_rolling(world, gt[i], gt[i + 1], 0.1, 1500, 0.5,
+                                                     30.0, noise=0.01, seed=100 * s + i)
+            raws.append(pack_raw_scan(pts, time=i * 0.1 + rel, stamp=i * 0.1,
+                                      max_points=2048, device=dev))
+        lo, hi = cut[i], cut[i + 1]
+        pk = lio.pack_imu_packet(t[lo:hi], g[lo:hi], a[lo:hi], cap, device=dev)
+        packets = type(pk)(*(f.expand((n_streams,) + f.shape).contiguous() for f in pk))
+        return preprocess_scan(stack_raw_scans(raws), cfg.lidar), packets
+
+    state = streams.init_batched_lio_state(cfg, n_streams, dev)
+    seen = 0
+    for i in range(n_steps - 1):
+        scans, packets = inputs(i)
+        state, _ = streams.batched_lio_step(state, scans, packets, cfg, init_samples=seen)
+        seen += int(cut[i + 1] - cut[i])
+    assert seen >= cfg.imu.max_init_count  # the next step runs the IMU branch alone
+    scans, packets = inputs(n_steps - 1)
+
+    def clone(x):
+        return torch.utils._pytree.tree_map(torch.clone, x)
+
+    before = _common.LAUNCHES["imu_deskew"]
+    st_k, out_k = streams.batched_lio_step(clone(state), scans, packets, cfg, init_samples=seen)
+    assert _common.LAUNCHES["imu_deskew"] == before + 1
+    assert bool(out_k.used_imu.all())
+    monkeypatch.setattr(ekf, "deskew_points", ekf.deskew_points_plain)
+    st_p, out_p = streams.batched_lio_step(clone(state), scans, packets, cfg, init_samples=seen)
+    torch.cuda.synchronize()
+    assert _common.LAUNCHES["imu_deskew"] == before + 1
+    assert torch.equal(_bits(out_k.scan_deskewed), _bits(out_p.scan_deskewed))
+    assert bool(torch.isfinite(out_k.pose).all()) and torch.equal(out_k.pose, out_p.pose)
+    for x, y in zip(torch.utils._pytree.tree_leaves((st_k, out_k)),
+                    torch.utils._pytree.tree_leaves((st_p, out_p))):
+        if x.is_floating_point():  # bit for bit, a NaN included
+            x, y = (v.view(torch.int64 if v.element_size() == 8 else torch.int32) for v in (x, y))
+        assert torch.equal(x, y)

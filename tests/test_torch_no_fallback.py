@@ -19,9 +19,10 @@ import pytest
 import torch
 
 from lidar_imu_slam_tpu_torch import config as cfgmod
+from lidar_imu_slam_tpu_torch.models import ekf
 from lidar_imu_slam_tpu_torch.ops import voxel_map
 from lidar_imu_slam_tpu_torch.ops.kernels import (_build, _common, candidate_fetch, icp_gn,
-                                                  nn_bruteforce, pose_chain, probes)
+                                                  imu_deskew, nn_bruteforce, pose_chain, probes)
 from lidar_imu_slam_tpu_torch.ops.preprocess import Scan
 from lidar_imu_slam_tpu_torch.parallel import streams
 
@@ -65,11 +66,13 @@ def no_library(monkeypatch):
     monkeypatch.setattr(nn_bruteforce, "_fns", {})
     monkeypatch.setattr(probes, "_fns", {})
     monkeypatch.setattr(candidate_fetch, "_fns", {})
+    monkeypatch.setattr(imu_deskew, "_fns", {})
 
     def forbidden(*a, **k):
         raise AssertionError("plain version called for non-CPU tensors")
 
     monkeypatch.setattr(voxel_map, "gather_candidate_planes_packed_plain", forbidden)
+    monkeypatch.setattr(ekf, "deskew_points_plain", forbidden)
     monkeypatch.setattr(pose_chain, "pose_pre_ref", forbidden)
     monkeypatch.setattr(pose_chain, "pose_post_ref", forbidden)
     monkeypatch.setattr(icp_gn, "fused_gn_carry_ref", forbidden)
@@ -81,7 +84,7 @@ def no_library(monkeypatch):
 
 @pytest.mark.parametrize("kernel", ["pose_pre", "pose_post", "fused_gn_carry", "fused_gn",
                                     "fused_gn_batched", "nn_bruteforce", "take_rows",
-                                    "take_lanes", "gn_proto"])
+                                    "take_lanes", "gn_proto", "imu_deskew"])
 def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
     f64, f32, i32 = torch.float64, torch.float32, torch.int32
     before = dict(_common.LAUNCHES)
@@ -110,6 +113,11 @@ def test_wrapper_raises_instead_of_falling_back(no_library, kernel):
             probes.take_rows(_meta((8192, 128), f32), _meta((2048, 1), i32))
         elif kernel == "take_lanes":
             probes.take_lanes(_meta((8, 8192), f32), _meta((8, 2048), i32))
+        elif kernel == "imu_deskew":  # through the dispatch, as the LIO step calls it
+            ekf.deskew_points(_meta((8, 1024, 3), f32), _meta((8, 1024), f64),
+                              _meta((8, 1024), torch.bool), _meta((8, 65), f32),
+                              _meta((8, 65, 21), f32), _meta((8, 3), f32), _meta((8, 3), f32),
+                              _meta((8, 3, 3), f32))
         else:
             probes.gn_proto(_meta((3, 256), f32), _meta((256,), torch.bool),
                             _meta((3, 16, 256), f32), _meta((2,), f32), 8)
