@@ -5,12 +5,12 @@ by the EKF pose, and the EKF pose update with ZUPT and trail augmentation.
 
     state', out = step(state, scan, packet, cfg)
 
-Registration goes the way the JAX step picks it (lio.py:138): the fast
-trunk (`kiss_icp._fast_trunk`: kernels K2, K1 per ICP round, K3) when
-gn_backend="pallas" without a batch unroll, the classic f64
-`register_core` otherwise. While the static initialization is open the
-scan is deskewed at constant velocity (the K2 row's twist on the fast
-path); after it, by the IMU trail.
+Registration goes the way the JAX step picks it (lio.py:138), through the
+lidar-only step's trunk: `kiss_icp.register_core_fast` (kernels K2, K1 per
+ICP round, K3) when gn_backend="pallas" without a batch unroll, the
+classic f64 `kiss_icp.register_core` otherwise. While the static
+initialization is open the scan is deskewed at constant velocity (the K2
+row's twist on the fast path); after it, by the IMU trail.
 
 Host reads per scan: one of `imu_init.done`, which picks the IMU or the
 constant-velocity branch (the JAX `lax.cond`, lio.py:220) and skips the
@@ -38,9 +38,8 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..ops import deskew as deskew_ops
 from ..ops import imu as imu_ops
-from ..ops import lie, voxel_map
+from ..ops import lie
 from ..ops.preprocess import Scan, to_device
 from ..utils.profiling import annotate
 from . import ekf as ekf_mod
@@ -165,23 +164,6 @@ def _imu_branch(state: LioState, full: ekf_mod.ImuPacket, scan: Scan, cfg: Pipel
     return e, deskewed, lie.compose(ekf_mod.pose_matrix(e), _imu_to_lidar(e))
 
 
-def _fast_outputs(fcore, odo: kiss_icp.KissState):
-    """The fast trunk's outputs as a classic `CoreOutput`, with `odo` the
-    next odometry state (`kiss_icp.fast_state`, as `_register_frame_fast`
-    builds it)."""
-    dev = odo.pose.device
-    return kiss_icp.CoreOutput(
-        new_map=fcore.new_map, threshold=odo.threshold, pose=odo.pose,
-        keypoints=fcore.source, keypoints_mask=fcore.source_mask,
-        map_points=fcore.map_points, map_points_mask=fcore.map_points_mask,
-        # a fill, not a host-to-device copy of the loop's count
-        icp_iterations=torch.full((), fcore.iterations, dtype=torch.int32, device=dev),
-        num_correspondences=fcore.num_correspondences,
-        residual_rms=fcore.residual_rms, sigma=fcore.sigma,
-        icp_converged=fcore.converged, window_drops=fcore.window_drops,
-    )
-
-
 @annotate("lio.step")
 def _step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineConfig,
           form: str, inplace: bool):
@@ -191,10 +173,8 @@ def _step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineC
     stream, each stream taking the IMU branch where its static
     initialization was done before this step). Reads nothing from the
     device beyond the registration's own reads."""
-    fast = kiss_icp._is_fast(cfg)
+    fast = kiss_icp.is_fast(cfg)
     odo = state.odo
-    dev = odo.pose.device
-    lead = scan.mask.shape[:-1]
     full = _with_prev_sample(packet, state.last_imu)
     imu, cv = form != "cv", form != "imu"
     used = state.imu_init.done  # per stream: the IMU branch this scan
@@ -214,22 +194,10 @@ def _step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineC
     pre = kiss_icp.pose_pre_row(odo, cfg) if fast else None
     if imu:
         ekf_imu, desk_imu, guess_imu = _imu_branch(state, full, scan, cfg)
-    if cv and fast:
-        # kernel-gated twist: identity when deskew is off or < 3 poses
-        with annotate("kiss_icp.deskew"):
-            desk_cv = deskew_ops.deskew_from_scalars(scan.xyz, scan.tau, pre.row[16:29])
-        guess_cv = None  # row[:12] is the guess
-    elif cv:
-        desk_cv = scan.xyz
-        if cfg.icp.deskew:
-            with annotate("kiss_icp.deskew"):
-                desk_cv = torch.where(
-                    (odo.num_poses > 2)[..., None, None],
-                    deskew_ops.constant_velocity_deskew_fast(scan.xyz, scan.tau, odo.pose_prev,
-                                                             odo.pose),
-                    scan.xyz)
-        last_pose = kiss_icp._where(odo.num_poses == 0, kiss_icp._eye4(dev, lead), odo.pose)
-        guess_cv = lie.compose(last_pose, kiss_icp.get_prediction_model(odo))
+    if cv:
+        desk_cv = kiss_icp.constant_velocity_deskew(odo, scan, cfg, pre)
+        # on the fast path the K2 row is the guess
+        guess_cv = None if fast else kiss_icp.constant_velocity_guess(odo)
     if form == "imu":
         ekf_state, deskewed_xyz, init_guess = ekf_imu, desk_imu, guess_imu
     elif form == "cv":
@@ -237,35 +205,22 @@ def _step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineC
     else:
         ekf_state = ekf_mod.select(used, ekf_imu, ekf_state)
         deskewed_xyz = torch.where(used[..., None, None], desk_imu, desk_cv)
-        init_guess = kiss_icp._where(used, guess_imu, guess_cv)
+        init_guess = lie.where_pose(used, guess_imu, guess_cv)
 
-    # registration: the trunk shared with the lidar-only step, then the map
-    # and pose bookkeeping (on the fast trunk, kernels K2 / K3 wrote it: the
-    # accumulators come from K2 whichever guess K3 composed with)
+    # registration: the trunk shared with the lidar-only step, with the map
+    # and pose bookkeeping
     if fast:
         if init_guess is None:
             guess = pre.row
             init_guess = lie.make_transform(guess[:9].reshape(3, 3), guess[9:12])
         else:
             guess = torch.cat([init_guess[:3, :3].reshape(9), init_guess[:3, 3]])
-        fcore = kiss_icp._fast_trunk(odo, deskewed_xyz, scan.mask, scan.tau, guess,
-                                     pre.row[12], cfg, inplace=inplace)
-        new_odo = kiss_icp.fast_state(fcore.new_map, pre, fcore.post)
-        core = _fast_outputs(fcore, new_odo)
+        new_odo, core = kiss_icp.register_core_fast(odo, deskewed_xyz, scan.mask, guess, cfg,
+                                                    pre, tau=scan.tau, inplace=inplace)
     else:
-        moved = kiss_icp.has_moved(odo, cfg.icp.min_motion_th)
         # the JAX LIO step hands register_core no per-point time
-        core = kiss_icp.register_core(odo.map, odo.threshold, moved, deskewed_xyz, scan.mask,
-                                      init_guess, cfg, inplace=inplace)
-        first = odo.num_poses == 0
-        new_odo = kiss_icp.KissState(
-            map=core.new_map,
-            pose=core.pose,
-            pose_prev=kiss_icp._where(first, core.pose, odo.pose),
-            first_pose=kiss_icp._where(first, core.pose, odo.first_pose),
-            num_poses=odo.num_poses + 1,
-            threshold=core.threshold,
-        )
+        new_odo, core = kiss_icp.register_core(odo, deskewed_xyz, scan.mask, init_guess, cfg,
+                                               inplace=inplace)
 
     # EKF measurement update + trail maintenance
     if imu:
@@ -326,20 +281,9 @@ def _step(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: PipelineC
         init_v0=init_v0, init_t0=init_t0,
     )
     out = LioOutput(
-        pose=core.pose,
+        **core._asdict(),
         ekf_pose=ekf_mod.pose_matrix(ekf_state),
         velocity=ekf_mod.velocity(ekf_state),
-        keypoints=core.keypoints,
-        keypoints_mask=core.keypoints_mask,
-        deskewed=core.map_points,
-        deskewed_mask=core.map_points_mask,
-        icp_iterations=core.icp_iterations,
-        num_correspondences=core.num_correspondences,
-        residual_rms=core.residual_rms,
-        sigma=core.sigma,
-        map_voxels=voxel_map.num_voxels(core.new_map),
-        icp_converged=core.icp_converged,
-        window_drops=core.window_drops,
         imu_initialized=imu_init_next.done,
         used_imu=used,
         streams_initialized=torch.sum(imu_init_next.done, dtype=torch.int32),
@@ -375,7 +319,7 @@ def step_streams(state: LioState, scan: Scan, packet: ekf_mod.ImuPacket, cfg: Pi
     runs the IMU branch alone; otherwise both branches run on every stream
     and each stream takes its own. Outputs carry a leading S but for the
     two stream counts."""
-    if kiss_icp._is_fast(cfg) or scan.mask.dim() != 2:
+    if kiss_icp.is_fast(cfg) or scan.mask.dim() != 2:
         raise ValueError("step_streams takes S streams on the classic fixed-unroll "
                          "registration (streams.batch_config)")
     return _step(state, scan, packet, cfg, "imu" if imu_ready else "both", inplace)

@@ -4,7 +4,8 @@ loops and the adaptive threshold.
 
 The classic f64 backend (gn_backend="xla") in plain tensor code:
 * `icp_registration` — candidates fetched from the f32 slab once per outer
-  round, f64 GN iterations (`_align_soa`) until converged or stale. The
+  round, f64 GN iterations (`gn_step` on the nearest candidates, the step
+  the map-sharded ICP also takes) until converged or stale. The
   loops are Python loops with ONE host read per inner iteration (the
   converged / stale flags);
 * `icp_registration_unrolled` — its batched schedule: `n_outer` fetches x
@@ -262,7 +263,7 @@ def icp_registration_fused_pair(
     return FusedIcpResult(pose, iters, row[12].to(torch.int32), row[13], conv)
 
 
-def _transform_soa(T, px, py, pz):
+def transform_soa(T, px, py, pz):
     """(..., 4, 4) f64 T applied to SoA (..., N) f64 points."""
     R, t = T[..., None, :3, :3], T[..., None, :3, 3]
     wx = R[..., 0, 0] * px + R[..., 0, 1] * py + R[..., 0, 2] * pz + t[..., 0]
@@ -274,7 +275,7 @@ def _transform_soa(T, px, py, pz):
 def _fetch(m, T, px, py, pz, mask, map_cfg: MapConfig):
     """Candidates of the source at pose T from the f32 slab, de-interleaved."""
     with annotate("icp.fetch"):
-        wx, wy, wz = _transform_soa(T, px, py, pz)
+        wx, wy, wz = transform_soa(T, px, py, pz)
         world_f = torch.stack([wx.to(F32), wy.to(F32), wz.to(F32)], dim=-1)
         cand, cand_valid = voxel_map.gather_candidates(m, world_f, mask, map_cfg)
         return (*voxel_map.deinterleave_candidates(cand), cand_valid)
@@ -284,12 +285,22 @@ def _gn_iteration(T_icp, init_guess, px, py, pz, cand, mask, max_d2, kth,
                   min_correspondences: int, max_step_norm: float,
                   estimation_threshold: float):
     """One f64 GN iteration against fixed candidates (the body shared by
-    JAX ops/icp.py:253-289 and :374-408). max_d2 / kth (...) f64. Returns
-    (estimate (..., 4, 4), n_corr i32, rms f64, converged)."""
+    JAX ops/icp.py:253-289 and :374-408): the source at T_icp init_guess,
+    its nearest candidates, then `gn_step`."""
     T = lie.compose(T_icp, init_guess)
-    wx, wy, wz = _transform_soa(T, px, py, pz)
+    wx, wy, wz = transform_soa(T, px, py, pz)
     tx, ty, tz, d2, found = voxel_map.nn_from_candidates_soa(
         *cand[:3], cand[3], wx.to(F32), wy.to(F32), wz.to(F32), mask)
+    return gn_step(wx, wy, wz, tx, ty, tz, d2, found, max_d2, kth, min_correspondences,
+                   max_step_norm, estimation_threshold)
+
+
+def gn_step(wx, wy, wz, tx, ty, tz, d2, found, max_d2, kth, min_correspondences: int,
+            max_step_norm: float, estimation_threshold: float):
+    """One f64 GN step from matches: the source (..., N) f64 SoA, its
+    nearest neighbours (..., N) f32 SoA with their f32 d^2 and `found`
+    flags; max_d2 / kth (...) f64. Returns (estimate (..., 4, 4), n_corr
+    i32, rms f64, converged)."""
     # compared in f64, as JAX promotes the f32 d2 against the f64 bound
     corr = found & (d2.to(F64) < max_d2[..., None])
     estimate, xi = _align_soa(wx, wy, wz, tx.to(F64), ty.to(F64), tz.to(F64), corr,
@@ -299,7 +310,7 @@ def _gn_iteration(T_icp, init_guess, px, py, pz, cand, mask, max_d2, kth,
     step = torch.linalg.norm(xi, dim=-1)
     scale = torch.where(step > max_step_norm, max_step_norm / step, torch.ones_like(step))
     ok = nc >= min_correspondences
-    eye = torch.eye(4, dtype=F64, device=T.device)
+    eye = torch.eye(4, dtype=F64, device=wx.device)
     clamped = lie.se3_exp(xi * scale[..., None])
     estimate = torch.where(ok[..., None, None],
                            torch.where((scale < 1.0)[..., None, None], clamped, estimate), eye)
@@ -423,7 +434,7 @@ def _fused_round(m, px, py, pz, mask, qmask, T, map_cfg: MapConfig, scal, n_inne
 
     Returns (T_delta (..., 4, 4) f64 world-frame correction, n_corr i32,
     rms f64, iters i32, converged, stale)."""
-    wx, wy, wz = _transform_soa(T, px, py, pz)
+    wx, wy, wz = transform_soa(T, px, py, pz)
     nq = torch.clamp(torch.sum(mask, dim=-1), min=1).to(F64)
     anchor = torch.stack([torch.sum(torch.where(mask, c, torch.zeros_like(c)), dim=-1) / nq
                           for c in (wx, wy, wz)], dim=-1)

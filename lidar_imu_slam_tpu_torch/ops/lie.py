@@ -202,6 +202,17 @@ def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return A @ B
 
 
+def eye4(device, lead: tuple = ()) -> torch.Tensor:
+    """The f64 identity pose expanded to (*lead, 4, 4) (a view: clone it
+    before writing)."""
+    return torch.eye(4, dtype=torch.float64, device=device).expand(lead + (4, 4))
+
+
+def where_pose(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-stream select of (..., 4, 4) poses by a (...) condition."""
+    return torch.where(cond[..., None, None], a, b)
+
+
 def transform_inverse(T: torch.Tensor) -> torch.Tensor:
     R, t = T[..., :3, :3], T[..., :3, 3]
     Rt = R.transpose(-1, -2)

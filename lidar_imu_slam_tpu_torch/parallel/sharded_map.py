@@ -13,9 +13,11 @@ and lets GSPMD place it. Here the axis is explicit, as the stream axis of
 (S, D)), and the port's `voxel_map` functions take it as one more leading
 axis. Over a `parallel.mesh.Mesh` each rank holds a contiguous block of the
 shard axis (`shard_state`); without a mesh one device holds all D. The
-replicated work (pose chain, downsample, source selection, IQR, GN solve)
-runs the same on every rank, as under GSPMD. The only collectives, all
-over the mesh's map axis:
+replicated work runs the same on every rank, as under GSPMD: it is the
+lidar-only registration trunk's own code (`models/kiss_icp`: the CV guess,
+`select_source`, `adaptive_threshold`, `divergence_gate`,
+`corrected_cloud`, `next_state`; `icp.gn_step` for the GN solve). The only
+collectives, all over the mesh's map axis:
 
 * per GN iteration, the cross-shard NN winner (`_sharded_nn_from_candidates`):
   one all_reduce MIN of (d^2 bits << 32 | global shard index), which keeps
@@ -48,7 +50,7 @@ import torch.distributed as dist
 from ..config import PipelineConfig
 from ..models import kiss_icp
 from ..ops import icp as icp_ops
-from ..ops import lie, stats, voxel_map
+from ..ops import lie, voxel_map
 from .mesh import Mesh, all_reduce, on_device, tree_map
 
 F32 = torch.float32
@@ -153,47 +155,36 @@ def _icp_sharded(smap, source, source_mask, max_corresp_dist, kernel_th,
                  cfg: PipelineConfig, n_outer: int, n_inner: int, shard0: int = 0,
                  group=None):
     """Fixed-unroll GN-ICP against the sharded map (JAX sharded_map.py:121):
-    `icp_registration_unrolled`'s fetch-per-outer-round schedule and
-    per-iteration math with the sharded NN. Inputs may carry a leading
-    stream axis. Returns (T_icp, iterations, correspondences)."""
+    `icp_registration_unrolled`'s fetch-per-outer-round schedule and GN step
+    (`icp.gn_step`) with the sharded NN. Inputs may carry a leading stream
+    axis. Returns (T_icp, iterations, correspondences)."""
     dev = source.device
     lead = source_mask.shape[:-1]
-    max_d2 = (max_corresp_dist * max_corresp_dist)[..., None]
-    kth = kernel_th[..., None]
+    max_d2 = max_corresp_dist * max_corresp_dist
     px, py, pz = (source[..., i].to(F64) for i in range(3))
-    eye = kiss_icp._eye4(dev, lead)
-    max_step = cfg.icp.max_step_norm
+    eye = lie.eye4(dev, lead)
 
     T_icp = eye
     converged = torch.zeros(lead, dtype=torch.bool, device=dev)
     n_corr = torch.zeros(lead, dtype=I32, device=dev)
     iters = torch.zeros(lead, dtype=I32, device=dev)
     for _ in range(n_outer):
-        fx, fy, fz = icp_ops._transform_soa(T_icp, px, py, pz)
+        fx, fy, fz = icp_ops.transform_soa(T_icp, px, py, pz)
         qf = torch.stack([fx.to(F32), fy.to(F32), fz.to(F32)], dim=-1)
         planes = _sharded_fetch(smap, qf, source_mask, cfg)
         for _ in range(n_inner):
-            wx, wy, wz = icp_ops._transform_soa(T_icp, px, py, pz)
+            wx, wy, wz = icp_ops.transform_soa(T_icp, px, py, pz)
             tx, ty, tz, d2, found = _sharded_nn_from_candidates(
                 planes, wx.to(F32), wy.to(F32), wz.to(F32), source_mask, shard0, group)
-            # compared in f64, as JAX promotes the f32 d2 against the f64 bound
-            corr = found & (d2.to(F64) < max_d2)
-            estimate, xi = icp_ops._align_soa(wx, wy, wz, tx.to(F64), ty.to(F64), tz.to(F64),
-                                              corr, kth)
-            nc = torch.sum(corr, dim=-1).to(I32)
-            step = torch.linalg.norm(xi, dim=-1)
-            ok = nc >= cfg.icp.min_correspondences
-            scale = torch.where(step > max_step, max_step / step, torch.ones_like(step))
-            clamped = lie.se3_exp(xi * scale[..., None])
-            estimate = torch.where(
-                ok[..., None, None],
-                torch.where((scale < 1.0)[..., None, None], clamped, estimate), eye)
+            estimate, nc, _, conv = icp_ops.gn_step(
+                wx, wy, wz, tx, ty, tz, d2, found, max_d2, kernel_th,
+                cfg.icp.min_correspondences, cfg.icp.max_step_norm,
+                cfg.icp.estimation_threshold)
             active = ~converged
             T_icp = torch.where(active[..., None, None], lie.compose(estimate, T_icp), T_icp)
             n_corr = torch.where(active, nc, n_corr)
             iters = iters + active.to(I32)
-            converged = converged | ~ok | (torch.clamp(step, max=max_step)
-                                           < cfg.icp.estimation_threshold)
+            converged = converged | conv
 
     empty = _map_voxels(smap, lead, group) == 0
     return torch.where(empty[..., None, None], eye, T_icp), iters, n_corr
@@ -248,60 +239,26 @@ def register_frame(state: ShardedKissState, scan, cfg: PipelineConfig, n_shards:
         raise ValueError(f"{d_local} local shards x {ranks} ranks is not {n_shards} shards")
     group = None if mesh is None else mesh.group(axis)
     shard0 = 0 if mesh is None else mesh.index(axis) * d_local
-    eye = kiss_icp._eye4(dev, lead)
-    where = kiss_icp._where
 
-    last_pose = where(state.num_poses == 0, eye, state.pose)
-    pred = lie.compose(lie.transform_inverse(state.pose_prev), state.pose)
-    pred = where(state.num_poses < 2, eye, pred)
-    init_guess = lie.compose(last_pose, pred)
-
+    init_guess = kiss_icp.constant_velocity_guess(state)
     tg = init_guess[..., :3, 3].to(F32)
     world = lie.rotate_points(init_guess[..., None, :3, :3], scan.xyz) + tg[..., None, :]
-    vs = cfg.map.voxel_size
-    g = voxel_map.fused_downsample(world, scan.mask, vs, cfg.icp.max_map_points)
-    source, source_mask, _, src_drops = voxel_map.first_point_per_voxel(
-        g.points, g.mask, 1.5 * vs, cfg.icp.max_source_points)
-    d_sq = torch.sum((source - tg[..., None, :]) ** 2, dim=-1)
-    source_mask = stats.iqr_inlier_mask(d_sq.to(F64), source_mask)
-
-    moved = kiss_icp.has_moved(
-        kiss_icp.KissState(None, state.pose, state.pose_prev, state.first_pose,
-                           state.num_poses, state.threshold),
-        cfg.icp.min_motion_th)
-    thr_state, sigma = icp_ops.compute_threshold(
-        state.threshold, moved, cfg.icp.initial_threshold, cfg.icp.min_motion_th,
-        cfg.map.max_range)
-
+    g, source, source_mask, window_drops = kiss_icp.select_source(world, scan.mask, tg, cfg)
+    thr_state, sigma = kiss_icp.adaptive_threshold(state, cfg)
     T_icp, iters, n_corr = _icp_sharded(
         state.map, source, source_mask, 3.0 * sigma, sigma / 3.0, cfg, n_outer, n_inner,
         shard0, group)
-    pose_icp = lie.compose(T_icp, init_guess)
-    model_dev = lie.compose(lie.transform_inverse(init_guess), pose_icp)
-    diverged = torch.linalg.norm(model_dev[..., :3, 3], dim=-1) > cfg.icp.max_model_deviation
-    new_pose = lie.orthonormalize(where(diverged, init_guess, pose_icp))
-    model_dev = where(diverged, eye, model_dev)
-    thr_state = icp_ops.update_model_deviation(thr_state, model_dev)
+    new_pose, thr_state = kiss_icp.divergence_gate(init_guess, lie.compose(T_icp, init_guess),
+                                                   thr_state, cfg)
 
-    delta = lie.compose(new_pose, lie.transform_inverse(init_guess))
-    g_corr = g._replace(points=lie.rotate_points(delta[..., None, :3, :3], g.points)
-                        + delta[..., None, :3, 3].to(F32))
-    pre_keys = voxel_map.pack_key(voxel_map.voxel_of(g.points, vs))
+    g_corr, pre_keys = kiss_icp.corrected_cloud(g, *kiss_icp.map_delta(new_pose, init_guess),
+                                                cfg)
     shard_ids = shard0 + torch.arange(d_local, dtype=I32, device=dev)
     owned, owned_keys = _owned_cloud(g_corr, pre_keys, _owner(pre_keys, n_shards), shard_ids)
     new_map = voxel_map.insert_grouped(state.map, owned, cfg.map, keys=owned_keys)
     origin = new_pose[..., None, :3, 3].expand(lead + (d_local, 3))
     new_map = voxel_map.evict_far(new_map, origin, cfg.map, inplace=True)
-
-    first = state.num_poses == 0
-    new_state = ShardedKissState(
-        map=new_map,
-        pose=new_pose,
-        pose_prev=where(first, new_pose, state.pose),
-        first_pose=where(first, new_pose, state.first_pose),
-        num_poses=state.num_poses + 1,
-        threshold=thr_state,
-    )
+    new_state = kiss_icp.next_state(state, new_map, new_pose, thr_state)
     counts = torch.stack([voxel_map.num_voxels(new_map).to(I64).sum(dim=-1),
                           new_map.drops.to(I64).sum(dim=-1)])
     counts = all_reduce(counts, dist.ReduceOp.SUM, group)
@@ -310,7 +267,7 @@ def register_frame(state: ShardedKissState, scan, cfg: PipelineConfig, n_shards:
         "num_correspondences": n_corr,
         "map_voxels": counts[0].to(I32),
         "drops": counts[1].to(I32),
-        "window_drops": g.window_drops + src_drops,
+        "window_drops": window_drops,
     }
     return new_state, new_pose, metrics
 

@@ -34,6 +34,7 @@ from lidar_imu_slam_tpu_torch import interop
 from lidar_imu_slam_tpu_torch.models import kiss_icp as tk
 from lidar_imu_slam_tpu_torch.ops import lie as tlie
 from lidar_imu_slam_tpu_torch.ops import preprocess as tpre
+from lidar_imu_slam_tpu_torch.ops import voxel_map as tvm
 from lidar_imu_slam_tpu_torch.utils import trajectory as ttraj
 
 torch.set_num_threads(1)
@@ -183,3 +184,40 @@ def test_step_in_place_matches_functional(drives):
     for a, b in zip(new_f.map, new_s.map):
         assert torch.equal(a, b)
     assert new_s.map.keys.data_ptr() == st.map.keys.data_ptr()  # updated in place
+
+
+@pytest.mark.parametrize("name", ["tiny", "bench_like"])
+def test_fast_step_compaction_matches_jax(name):
+    """The fast step through an in-step compaction (`auto_rebuild` firing):
+    from a state whose map holds only tombstones with the cursor near the
+    compaction mark, scan 0's insert passes the mark and the step compacts
+    the slab. The map is bit-equal to JAX's fast step from the same state,
+    functional and in place (the empty live map makes the ICP return the
+    guess, so the inserted points are the same bits)."""
+    cj, ct = _cfg(jcfg, name), _cfg(tcfg, name)
+    cap = ct.map.capacity
+    rng = np.random.default_rng(3)
+    m = tvm.create(ct.map, "cpu")
+    for _ in range(5):  # 660 voxels an insert (bench_like inserts at most 700)
+        far = torch.from_numpy(rng.uniform(-20, 20, (660, 3)).astype(np.float32))
+        far[:, 0] += 200.0
+        g = tvm.fused_downsample(far, torch.ones(660, dtype=torch.bool), ct.map.voxel_size, 660)
+        m = tvm.insert_grouped(m, g, ct.map)
+    m = tvm.evict_far(m, torch.zeros(3, dtype=torch.float64), ct.map)
+    assert int(tvm.num_voxels(m)) == 0 and 3000 < int(m.next_slot) <= cap - cap // 8
+    st = tk.init_state(ct, "cpu")._replace(map=m)
+    tree = interop.kiss_state_to_numpy(st)
+    sj = jk.KissState(jvm.VoxelMap(**{f: getattr(tree.map, f) for f in jvm.VoxelMap._fields}),
+                      tree.pose, tree.pose_prev, tree.first_pose, tree.num_poses,
+                      jicp.ThresholdState(*tree.threshold))
+    scan = _scans(name)[0][0]
+    nj, oj = jk.register_frame_jit(sj, _jax_scan(scan, cj), cj)
+    nt, ot = tk.register_frame(st, _torch_scan(scan, ct), ct)
+    ns, os_ = tk.register_frame_step(st, _torch_scan(scan, ct), ct)
+    assert int(nt.map.tombstones) == 0 and int(nt.map.next_slot) == int(ot.map_voxels) > 0
+    for f in jvm.VoxelMap._fields:
+        np.testing.assert_array_equal(getattr(nt.map, f).numpy(), np.asarray(getattr(nj.map, f)),
+                                      err_msg=f)
+        assert torch.equal(getattr(ns.map, f), getattr(nt.map, f)), f
+    np.testing.assert_array_equal(ot.pose.numpy(), np.asarray(oj.pose))
+    assert torch.equal(os_.pose, ot.pose)
